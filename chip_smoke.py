@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure:
 
-0. setup: needs a CUDA device; builds the ACS kernel from
-   ``nanopore_dna_storage_tpu_torch/csrc`` with nvcc (timed);
+0. setup: needs a CUDA device; builds every kernel library from
+   ``nanopore_dna_storage_tpu_torch/csrc``, one nvcc per source, all at
+   once (each timed, with its ptxas registers, stack and spills);
 1. the kernel against its plain PyTorch version on the card, at the
    headline decode config (experiment 7: m=11, r=5/6, msg_len 180, L=8,
    max deviation 20) on one synthetic read: buffers and selections
@@ -19,9 +20,16 @@ Phases, each fatal on failure:
    bit-identical to the reference binary's lists;
 3. the main path: ``sim-decode`` at experiment 7 on a 100-byte file, which
    must recover the file byte for byte, with one kernel launch per forward
-   block step.
+   block step;
+4. the merge-family probes (``probes/merge_roofline.py``,
+   ``probes/treepop.py``): merge and stream bit-equal to their plain
+   versions at [64, 8, 512] with 256 copies and 8 rounds, every copy's
+   slot equal; each tree-pop variant and the guarded tree bit-equal; each
+   kernel and plain version timed; then the probes' entry points, whose
+   merge rate gives the ACS kernel (phase 1, one read) its roofline share.
 
-The line before the last is ``{"kernels": [...]}``, the last is
+Before the last lines come ``{"roofline": {...}}``, the card's name and
+power limit, and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
 """
@@ -33,6 +41,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -50,6 +59,8 @@ try:
         PipelineDecoder
     from nanopore_dna_storage_tpu_torch.pipeline.simulate import \
         simulate_posts
+    from nanopore_dna_storage_tpu_torch.probes import (merge_roofline,
+                                                       treepop)
 except ImportError as e:
     sys.exit(f"chip_smoke: FAIL: the port package is not beside this "
              f"script: {e}")
@@ -57,6 +68,9 @@ except ImportError as e:
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "decode"
 SEED = 0
+# every kernel library and its sources in csrc/
+LIBS = {"lva_acs": ["lva_acs.cu"], "probes": ["probes.cu"]}
+PROBE_SOURCE = "nanopore_dna_storage_tpu_torch/csrc/probes.cu"
 
 
 def log(msg: str) -> None:
@@ -106,7 +120,9 @@ def same_bufs(got, want) -> float:
 
 
 def phase_kernel(dec, post):
-    """Phase 1: kernel vs plain version on one read, decoder ``dec``."""
+    """Phase 1: kernel vs plain version on one read, decoder ``dec``.
+    Returns the kernel's and the plain version's ms at the timed block, the
+    max |score error|, and the timed block's window start (padded row)."""
     spec, tabs, dev = dec.spec, dec.tabs, dec.device
     T = post.shape[0]
     L, C, W = spec.list_size, spec.code.nstate_conv, spec.window
@@ -185,7 +201,7 @@ def phase_kernel(dec, post):
         fail("headline read decoded to an empty list")
     log(f"phase 1: lists identical; {int(vk.sum())} valid entries, "
         f"top score {sk[0, 0]:.4f}")
-    return ms, plain_ms, err
+    return ms, plain_ms, err, int(starts[timed_block]) + 1
 
 
 class CheckedACS:
@@ -296,6 +312,171 @@ def phase_sim_decode(data: bytes, args):
     return rec, stats, launches, wall
 
 
+def build_kernels() -> None:
+    """Phase 0: every library of ``LIBS``, one nvcc per source, started
+    together; logs each build's time and its ptxas resource lines."""
+    def one(name):
+        t0 = time.perf_counter()
+        return _build.build(name, LIBS[name]), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(LIBS)) as ex:
+        built = list(ex.map(one, LIBS))
+    for path, sec in built:
+        log(f"phase 0: built {path.name} in {sec:.2f} s")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
+    _build.load_lva_acs()
+    _build.load_probes()
+
+
+def same_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Fails unless ``got`` and ``want`` are bit-equal; returns the max
+    |difference| over finite values (0.0 when they are)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {got.dtype}{tuple(got.shape)} against "
+             f"{want.dtype}{tuple(want.shape)}")
+    if got.dtype == torch.float32:
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        err = float((got[fin] - want[fin]).abs().max()) \
+            if bool(fin.any()) else 0.0
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    else:
+        err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        fail(f"{name}: kernel and plain version differ (max |error| {err})")
+    return err
+
+
+def probe_inputs(rng, shape, scores="normal", hashes="random"):
+    """Scores f32 and two int32 hash arrays of ``shape`` on the card."""
+    if scores == "normal":
+        x = rng.normal(size=shape).astype(np.float32)
+    else:  # integer scores in {0, 1, 2}, some columns all -inf: ties
+        x = rng.integers(0, 3, shape).astype(np.float32)
+        x[:, 0, :4] = -np.inf
+    if hashes == "random":
+        h = [rng.integers(0, 1 << 30, shape, dtype=np.int64).astype(np.int32)
+             for _ in range(2)]
+    else:  # a permutation, so every payload is unique
+        h = [rng.permutation(x.size).astype(np.int32).reshape(shape)] * 2
+    return [torch.from_numpy(a).cuda() for a in (x, *h)]
+
+
+def phase_probes(dec, acs_ms: float, acs_start1: int):
+    """Phase 4: the merge-family probes. Each kernel against its plain
+    version on the card, bit for bit, and both timed; then the probes'
+    entry points as a user runs them, with the launch counts set to 0 just
+    before and read just after. ``acs_ms`` is phase 1's ACS block step at
+    B=1 through decoder ``dec``, its window starting at padded row
+    ``acs_start1``. Returns the kernels' JSON entries and the roofline."""
+    nc, f, ct = merge_roofline.NC, merge_roofline.F, merge_roofline.CT
+    G, R = 256, 8
+    rng = np.random.default_rng(SEED)
+    x, h1, h2 = probe_inputs(rng, (nc, f, ct))
+    found = {}
+    for kind in ("merge", "stream"):
+        kern = getattr(merge_roofline, kind)
+        ref = getattr(merge_roofline, f"{kind}_ref")
+
+        def plain(a, b, c):
+            return ref(*(t.expand(G, *t.shape) for t in (a, b, c)), R)
+
+        err = 0.0
+        for b, c, what in ((h1, h1, "h1 = h2"), (h1, h2, "h1 != h2")):
+            got = kern(x, b, c, R, G)
+            err = max(err, same_bits(f"{kind} ({what})", got, plain(x, b, c)))
+            same_bits(f"{kind} copies ({what})", got, got[:1].expand_as(got))
+        ms = cuda_ms(lambda: kern(x, h1, h2, R, G), reps=20, warmup=2)
+        plain_ms = cuda_ms(lambda: plain(x, h1, h2), reps=3)
+        log(f"phase 4: {kind} [{nc},{f},{ct}] x {G} copies, {R} rounds: "
+            f"bit-equal, all copies equal; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        found[kind] = (err, ms, plain_ms)
+
+    err = 0.0
+    shape = (nc, f, treepop.CT)
+    for variant in treepop.VARIANTS:
+        for scores in ("normal", "ties"):
+            a, h, _ = probe_inputs(rng, shape, scores, "perm")
+            for got, want in zip(treepop.treepop(a, h, variant),
+                                 treepop.treepop_ref(a, h, variant)):
+                err = max(err, same_bits(f"treepop {variant} {scores}", got,
+                                         want))
+    for c in (128, 512):
+        a, h, _ = probe_inputs(rng, (nc, f, c), hashes="perm")
+        for guard_holds in (True, False):
+            if not guard_holds:
+                a[0, 0, 0] = 2e9
+            for got, want in zip(
+                    treepop.treepop(a, h, "reshape_pair", guarded=True),
+                    treepop.treepop_ref(a, h, "reshape_pair", guarded=True)):
+                err = max(err, same_bits(f"treepop when ct={c}", got, want))
+    a, h, _ = probe_inputs(rng, shape, hashes="perm")
+    ms = cuda_ms(lambda: treepop.treepop(a, h, "reshape_pair"), reps=50,
+                 warmup=3)
+    plain_ms = cuda_ms(lambda: treepop.treepop_ref(a, h, "reshape_pair"),
+                       reps=10)
+    log(f"phase 4: treepop {len(treepop.VARIANTS)} variants x 2 score "
+        f"kinds, guarded ct 128 and 512 bit-equal; reshape_pair at "
+        f"{list(shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    found["treepop"] = (err, ms, plain_ms)
+
+    torch.cuda.synchronize()
+    for k in merge_roofline.LAUNCHES:
+        merge_roofline.LAUNCHES[k] = 0
+    treepop.LAUNCHES = 0
+    roof = merge_roofline.main(["--rounds", str(R), "--grid", str(G)])
+    ok = treepop.main([*treepop.VARIANTS, "--when", "128", "--when", "512"])
+    torch.cuda.synchronize()
+    launches = {**merge_roofline.LAUNCHES, "treepop": treepop.LAUNCHES}
+    log(f"phase 4: probe entry points launched {launches}")
+    if not ok:
+        fail("a tree-pop variant disagrees with numpy's first argmax")
+    if not all(launches.values()):
+        fail(f"a probe kernel was not launched by its entry point: "
+             f"{launches}")
+
+    peak, formula = merge_roofline.lane_peak()
+    spec, tabs = dec.spec, dec.tabs
+    work = merge_roofline.acs_work_ops(spec, 1)
+    acs_rate = work / (acs_ms / 1e3)
+    # what the kernel executes of it: valid states only, real merge rows
+    valid = tabs["valid"][acs_start1:acs_start1 + spec.window] != 0
+    rows = (1 + (tabs["qmap"][:, 1:] >= 0).sum(1)).tolist()
+    executed = merge_roofline.acs_executed_ops(spec, rows, valid)
+    exec_rate = executed / (acs_ms / 1e3)
+    rate = {k: roof[k]["ops_per_s_T"] * 1e12 for k in ("merge", "stream")}
+    roofline = {
+        "lane_peak_ops_per_s": peak,
+        "lane_peak_formula": formula,
+        "merge_ops_per_s": rate["merge"],
+        "merge_share_of_lane_peak": rate["merge"] / peak,
+        "stream_ops_per_s": rate["stream"],
+        "stream_share_of_lane_peak": rate["stream"] / peak,
+        "acs_ms_per_block_step": acs_ms,
+        "acs_work_ops_per_block_step": work,
+        "acs_ops_per_s": acs_rate,
+        "acs_share_of_merge_ceiling": acs_rate / rate["merge"],
+        "acs_share_of_stream": acs_rate / rate["stream"],
+        "acs_share_of_lane_peak": acs_rate / peak,
+        "acs_valid_share_of_window": float(valid.float().mean()),
+        "acs_merge_rows_per_crf_state": rows,
+        "acs_executed_ops_per_block_step": executed,
+        "acs_executed_ops_per_s": exec_rate,
+        "acs_executed_share_of_merge_ceiling": exec_rate / rate["merge"],
+        "acs_executed_share_of_lane_peak": exec_rate / peak,
+    }
+    replaces = {"merge": "scripts/tpu_vpu_roofline.py:48",
+                "stream": "scripts/tpu_vpu_roofline.py:68",
+                "treepop": "scripts/tpu_treepop_probe.py:19"}
+    entries = [{"name": f"probe_{k}", "route": "cuda", "source": PROBE_SOURCE,
+                "replaces": replaces[k], "launches": launches[k],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+               for k, (err, ms, plain_ms) in found.items()]
+    return entries, roofline
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -305,14 +486,7 @@ def main() -> int:
     gpu = gpu_line()
     log(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    lib_path = _build.build("lva_acs", ["lva_acs.cu"])
-    _build.load_lva_acs()
-    log(f"phase 0: built {lib_path.name} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    build_kernels()
 
     data = np.random.default_rng(SEED).integers(
         0, 256, 100, dtype=np.uint8).tobytes()
@@ -325,7 +499,8 @@ def main() -> int:
                             msg_len=exp.msg_len(), rc=bool(rcs[0])),
         list_size=8, max_deviation=20)
     t0 = time.perf_counter()
-    _, _, err = phase_kernel(LVADecoder(headline, device="cuda"), posts[0])
+    dec = LVADecoder(headline, device="cuda")
+    acs_ms, _, err, acs_start1 = phase_kernel(dec, posts[0])
     log(f"phase 1: done in {time.perf_counter() - t0:.1f} s")
     (B, ms, plain_ms), err_b = phase_batch(enc, exp, "cuda")
     err = max(err, err_b)
@@ -343,8 +518,13 @@ def main() -> int:
     if launches == 0 or launches != stats.steps:
         fail(f"{launches} kernel launches for {stats.steps} block steps")
 
+    t0 = time.perf_counter()
+    probes, roofline = phase_probes(dec, acs_ms, acs_start1)
+    log(f"phase 4: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
-    log(f"kernel times below: one block step at the main path's B={B}")
+    log(f"lva_acs time below: one block step at the main path's B={B}")
+    log(json.dumps({"roofline": roofline}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -355,7 +535,7 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
+    }, *probes]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

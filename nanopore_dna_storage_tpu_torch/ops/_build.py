@@ -80,6 +80,20 @@ def build(name: str, sources) -> pathlib.Path:
     return out
 
 
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's wrapper checks before it passes a pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
 def load_lva_acs() -> ctypes.CDLL:
     """The ACS kernel library (``csrc/lva_acs.cu``), built on first call."""
     if "lva_acs" not in _LIBS:
@@ -93,3 +107,22 @@ def load_lva_acs() -> ctypes.CDLL:
         lib.lva_acs_error_string.restype = ctypes.c_char_p
         _LIBS["lva_acs"] = lib
     return _LIBS["lva_acs"]
+
+
+def load_probes() -> ctypes.CDLL:
+    """The merge-family probe kernels (``csrc/probes.cu``), built on first
+    call."""
+    if "probes" not in _LIBS:
+        lib = ctypes.CDLL(str(build("probes", ["probes.cu"])))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.probe_merge_launch, lib.probe_stream_launch):
+            # x, h1, h2, out, then nc, ncol, rounds, copies and the stream
+            fn.argtypes = [p] * 4 + [i] * 4 + [p]
+            fn.restype = i
+        # x, h, out, out_h, then nc, ncol, variant, guarded and the stream
+        lib.probe_treepop_launch.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.probe_treepop_launch.restype = i
+        lib.probe_error_string.argtypes = [i]
+        lib.probe_error_string.restype = ctypes.c_char_p
+        _LIBS["probes"] = lib
+    return _LIBS["probes"]

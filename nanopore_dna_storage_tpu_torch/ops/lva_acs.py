@@ -31,6 +31,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ._build import check_tensor, load_lva_acs
 from .lva_consts import HASH_P1, HASH_P2, NCRF, NQ_MAX, sel_format
 
 # Kernel launches made through ``acs_block`` (CUDA tensors only).
@@ -137,18 +138,6 @@ def acs_block_ref(tabs: Dict[str, torch.Tensor], prev: Buffers,
     return sel
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def acs_block(tabs: Dict[str, torch.Tensor], prev: Buffers, stale: Buffers,
               stay_tr: torch.Tensor, move_tr: torch.Tensor,
               start1: torch.Tensor, active: torch.Tensor,
@@ -185,19 +174,17 @@ def acs_block(tabs: Dict[str, torch.Tensor], prev: Buffers, stale: Buffers,
     bufshape = (B, P, NCRF, L, C)
     for name, bufs in (("prev", prev), ("stale", stale)):
         for t, dt in zip(bufs, (torch.float32, torch.int32, torch.int32)):
-            _check(name, t, dt, bufshape, dev)
-    _check("sel", sel, sel_format(L)[0], (B, W, NCRF * L, C), dev)
-    _check("stay_tr", stay_tr, torch.float32, (B, NCRF), dev)
-    _check("move_tr", move_tr, torch.float32, (B, NCRF, NCRF), dev)
-    _check("start1", start1, torch.int32, (B,), dev)
-    _check("active", active, torch.bool, (B,), dev)
-    _check("cstar", tabs["cstar"], torch.int32, (4, 4, C), dev)
-    _check("nbits", tabs["nbits"], torch.int32, (2, C), dev)
-    _check("valid", tabs["valid"], torch.uint8, (P, C), dev)
-    _check("pattern", tabs["pattern"], torch.int32, (P,), dev)
-    _check("qmap", tabs["qmap"], torch.int32, (NCRF, NQ_MAX), dev)
-
-    from ._build import load_lva_acs
+            check_tensor(name, t, dt, bufshape, dev)
+    check_tensor("sel", sel, sel_format(L)[0], (B, W, NCRF * L, C), dev)
+    check_tensor("stay_tr", stay_tr, torch.float32, (B, NCRF), dev)
+    check_tensor("move_tr", move_tr, torch.float32, (B, NCRF, NCRF), dev)
+    check_tensor("start1", start1, torch.int32, (B,), dev)
+    check_tensor("active", active, torch.bool, (B,), dev)
+    check_tensor("cstar", tabs["cstar"], torch.int32, (4, 4, C), dev)
+    check_tensor("nbits", tabs["nbits"], torch.int32, (2, C), dev)
+    check_tensor("valid", tabs["valid"], torch.uint8, (P, C), dev)
+    check_tensor("pattern", tabs["pattern"], torch.int32, (P,), dev)
+    check_tensor("qmap", tabs["qmap"], torch.int32, (NCRF, NQ_MAX), dev)
 
     lib = load_lva_acs()
     ptrs = [t.data_ptr() for t in (*prev, *stale, sel, stay_tr, move_tr,

@@ -1,0 +1,254 @@
+"""Empirical lane roofline of the suppression-merge op pattern on a CUDA card.
+
+Counterpart of ``scripts/tpu_vpu_roofline.py``. It measures which rate the
+card sustains, in element-ops per second, on two kernels over the merge's
+array shape [NC, F, CT]:
+
+1. ``stream``: 12 independent elementwise max / add / select ops per
+   element and round, the best case for that op count;
+2. ``merge``: the exact round of the production suppression merge (max,
+   first argmax, the winner's two hashes, dual-hash knockout), its
+   dependency chain included, with the candidates kept per thread as the
+   ACS kernel keeps them.
+
+Both rates are read against ``lane_peak()``, the card's FP32 lanes times
+its clock, as the TPU probe read its VPU peak; ``acs_work_ops`` counts the
+ACS kernel's work in the same unit, so its rate can be read as a share of
+the merge's. With ``--write`` the result goes to ``docs/GPU_ROOFLINE.json``.
+
+    python -m nanopore_dna_storage_tpu_torch.probes.merge_roofline \\
+        [--rounds 8] [--grid 256] [--write]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+
+import numpy as np
+import torch
+
+from ..ops._build import check_tensor, load_probes
+
+NC, F, CT = 64, 8, 512
+NEG = float("-inf")
+# element-ops per merge round over the [NC, F, CT] candidate array, one op
+# per element per arithmetic / compare / select pass: max 1 + argmax 2 +
+# one-hot 1 + 2 x (select + add) extraction 4 + hash equality 3 + knockout
+# 1 = 12 sweeps; the stream does 12 elementwise ops per element and round
+MERGE_SWEEPS = 12
+STREAM_SWEEPS = 12
+# FP32 lanes of one Hopper SM (4 sub-partitions x 32). Its INT32 rate is
+# half that, 64 lanes per clock; the peak counts FP32 lanes, as the TPU
+# probe counted its VPU's lanes, whatever mix of ops the kernels run.
+FP32_LANES_PER_SM = 128
+
+# Kernel launches made through ``merge`` and ``stream`` (CUDA tensors only).
+LAUNCHES = {"merge": 0, "stream": 0}
+
+
+def merge_ref(x: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+              rounds: int) -> torch.Tensor:
+    """Plain PyTorch merge probe over the candidate axis -3: scores f32
+    [..., NC, F, CT], hashes int32 of the same shape, -> f32 [..., F, CT].
+    The arithmetic and its order are those of ``make_merge_kernel``."""
+    csc = x
+    outs = []
+    for _ in range(rounds):
+        best = csc.amax(-3)
+        bq = csc.argmax(-3, keepdim=True)  # the first maximum
+        ch1, ch2 = h1.gather(-3, bq), h2.gather(-3, bq)
+        csc = torch.where((h1 == ch1) & (h2 == ch2), NEG, csc)
+        outs.append(best + (ch1 + ch2).squeeze(-3).float())
+    return sum(outs)  # ((0 + o0) + o1) + ...
+
+
+def stream_ref(x: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+               rounds: int) -> torch.Tensor:
+    """Plain PyTorch stream probe: shapes as in ``merge_ref``; the hashes
+    enter bitcast to f32, as in ``make_stream_kernel``."""
+    b, c = h1.view(torch.float32), h2.view(torch.float32)
+    acc = x
+    for _ in range(rounds):
+        t1 = torch.maximum(acc, b)
+        t2 = acc + c
+        t3 = torch.where(acc > b, c, acc)
+        t4 = torch.maximum(t1, t2)
+        t5 = t3 + t1
+        t6 = torch.where(t2 > t3, t4, t5)
+        t7 = t4 + t6
+        t8 = torch.maximum(t5, t7)
+        t9 = torch.where(t6 > t7, t8, t1)
+        t10 = t8 + t9
+        t11 = torch.maximum(t9, t10)
+        acc = torch.where(t10 > t11, acc, t11)
+    return acc.amax(-3)
+
+
+def _launch(kind: str, x: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+            rounds: int, copies: int) -> torch.Tensor:
+    dev = x.device
+    if dev.type == "cpu":
+        ref = merge_ref if kind == "merge" else stream_ref
+        return ref(*(t.expand(copies, *t.shape) for t in (x, h1, h2)),
+                   rounds)
+    if dev.type != "cuda":
+        raise ValueError(f"{kind} runs on cpu or cuda, not {dev}")
+    if x.dim() != 3 or not 1 <= x.shape[0] <= 64:
+        raise ValueError(f"{kind} takes [NC <= 64, F, CT] scores, "
+                         f"not {tuple(x.shape)}")
+    if rounds < 0 or copies < 1:
+        raise ValueError("rounds must be >= 0 and copies >= 1")
+    nc, f, ct = x.shape
+    check_tensor("x", x, torch.float32, x.shape, dev)
+    check_tensor("h1", h1, torch.int32, x.shape, dev)
+    check_tensor("h2", h2, torch.int32, x.shape, dev)
+    out = torch.empty((copies, f, ct), dtype=torch.float32, device=dev)
+    lib = load_probes()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"probe_{kind}_launch")(
+            x.data_ptr(), h1.data_ptr(), h2.data_ptr(), out.data_ptr(), nc,
+            f * ct, rounds, copies, stream)
+    if err != 0:
+        raise RuntimeError(f"probe {kind} launch failed: "
+                           + lib.probe_error_string(err).decode())
+    LAUNCHES[kind] += 1
+    return out
+
+
+def merge(x: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor, rounds: int,
+          copies: int = 1) -> torch.Tensor:
+    """``copies`` copies of the merge probe over one input: scores f32
+    [NC, F, CT], hashes int32 [NC, F, CT] -> f32 [copies, F, CT], every copy
+    the same. CPU tensors run ``merge_ref`` on the copies; CUDA tensors
+    launch the kernel of ``csrc/probes.cu``, which computes every copy and
+    writes each to its own slot; anything else raises."""
+    return _launch("merge", x, h1, h2, rounds, copies)
+
+
+def stream(x: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor, rounds: int,
+           copies: int = 1) -> torch.Tensor:
+    """The stream probe, with the contract of ``merge``."""
+    return _launch("stream", x, h1, h2, rounds, copies)
+
+
+def acs_work_ops(spec, nreads: int) -> int:
+    """The ACS kernel's work per block step in the probe's unit (one op per
+    element per arithmetic, compare or select pass), whatever kernel does
+    the step: ``W * 8 * C * nreads * (L * (12 * 8L + 4L) + 88 * L)``.
+
+    For each (read, window row, CRF destination, conv state): L merge rounds
+    of 12 sweeps over the 8L candidates plus 4 ops per output slot, and the
+    hash updates, 4 betas x 2 hashes x 11 ops (shift, add, 3 x (2 compares,
+    subtract)) per slot. These are ``bench.py``'s merge and hash terms
+    (``estimate_kernel_ops``), with the candidate rows padded to 8 as there,
+    and without its TPU-only butterfly and compaction terms. ``spec`` is an
+    ``ops.lva_consts.DecodeSpec``."""
+    L, C, W = spec.list_size, spec.code.nstate_conv, spec.window
+    merge_ops = L * (12 * 8 * L + 4 * L)
+    hash_ops = 4 * 2 * 11 * L
+    return W * 8 * C * nreads * (merge_ops + hash_ops)
+
+
+def acs_executed_ops(spec, rows, valid) -> int:
+    """The part of ``acs_work_ops(spec, 1)`` that the CUDA ACS kernel
+    (``csrc/lva_acs.cu``) executes at one block step of one read. A thread
+    whose (position, conv state) is not valid returns at once, and CRF
+    destination f merges its ``rows[f]`` real candidate rows (stay plus
+    moves: 8 for a flip state, 2 for a flop) instead of 8 padded ones. Per
+    valid (window row, f, conv state): ``L * (12 * rows[f] * L + 4L) + 22 *
+    (rows[f] - 1) * L``, the hash term being 2 hashes x 11 ops per move-row
+    candidate (over the 8 flip-flop states, 4 with 7 move rows and 4 with
+    1, its mean is ``acs_work_ops``'s 88 L). ``rows``: 8 counts; ``valid``:
+    bool [W, C], the valid table at the window's positions."""
+    L = spec.list_size
+    per_cell = sum(L * (12 * n * L + 4 * L) + 22 * (n - 1) * L
+                   for n in rows)
+    return int(valid.sum()) * per_cell
+
+
+def lane_peak(device: int = 0):
+    """(element-ops per second, formula) of the card's FP32 lanes: SMs x
+    ``FP32_LANES_PER_SM`` x the maximum SM clock that ``nvidia-smi``
+    reports."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    res = subprocess.run(
+        ["nvidia-smi", "-i", str(device), "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(res.stdout.strip())
+    return (sms * FP32_LANES_PER_SM * mhz * 1e6,
+            f"{sms} SMs x {FP32_LANES_PER_SM} FP32 lanes x {mhz:g} MHz "
+            f"max SM clock")
+
+
+def run(kind: str, rounds: int, grid: int, reps: int = 5) -> dict:
+    """Time ``grid`` copies of one probe kernel at [NC, F, CT] on the CUDA
+    card (the fastest of ``reps`` launches, by CUDA events) and return its
+    element-op rate and share of the lane peak."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the roofline probe needs a CUDA device")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(NC, F, CT)).astype(np.float32))
+    h = torch.from_numpy(rng.integers(0, 1 << 30, (NC, F, CT),
+                                      dtype=np.int64).astype(np.int32))
+    x, h = x.cuda(), h.cuda()
+    fn = merge if kind == "merge" else stream
+    fn(x, h, h, rounds, grid)  # builds the library on first use
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(x, h, h, rounds, grid)
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b) / 1e3)
+    dt = min(ts)
+    sweeps = MERGE_SWEEPS if kind == "merge" else STREAM_SWEEPS
+    elem_ops = grid * rounds * sweeps * NC * F * CT
+    peak, _ = lane_peak()
+    rate = elem_ops / dt
+    return {"kind": kind, "rounds": rounds, "grid": grid,
+            "kernel_s": dt, "elem_ops_T": elem_ops / 1e12,
+            "ops_per_s_T": rate / 1e12,
+            "pct_of_lane_peak": 100 * rate / peak}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--grid", type=int, default=256)
+    ap.add_argument("--write", action="store_true",
+                    help="write the result to docs/GPU_ROOFLINE.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("merge_roofline: needs a CUDA device")
+    peak, formula = lane_peak()
+    out = {"device": torch.cuda.get_device_name(0),
+           "shape": [NC, F, CT],
+           "lane_peak_ops_per_s_T": peak / 1e12,
+           "lane_peak_formula": formula,
+           "note": "pct_of_lane_peak = measured element-ops/s vs the FP32 "
+                   "lane peak; 'stream' = independent elementwise sweeps "
+                   "(best case for this shape), 'merge' = the exact "
+                   "production suppression-merge round (serial reductions "
+                   "+ knockout), candidates per thread as the ACS kernel "
+                   "keeps them"}
+    print(json.dumps({"lane_peak_ops_per_s_T": peak / 1e12,
+                      "lane_peak_formula": formula}), flush=True)
+    for kind in ("stream", "merge"):
+        r = run(kind, args.rounds, args.grid)
+        out[kind] = r
+        print(json.dumps(r), flush=True)
+    if args.write:
+        path = (pathlib.Path(__file__).resolve().parents[2] / "docs"
+                / "GPU_ROOFLINE.json")
+        path.write_text(json.dumps(out, indent=1) + "\n")
+    return out
+
+
+if __name__ == "__main__":
+    main()
