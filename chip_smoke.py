@@ -26,7 +26,18 @@ Phases, each fatal on failure:
    versions at [64, 8, 512] with 256 copies and 8 rounds, every copy's
    slot equal; each tree-pop variant and the guarded tree bit-equal; each
    kernel and plain version timed; then the probes' entry points, whose
-   merge rate gives the ACS kernel (phase 1, one read) its roofline share.
+   merge rate gives the ACS kernel (phase 1, one read) its roofline share;
+5. the expansion-family probes (``probes/expand.py``,
+   ``probes/mxu_expand.py``): every lane-map form (gather, shfl,
+   butterfly), the transpose and every one-hot product mode (tf32, bf16,
+   u8x4) bit-equal to its plain version at the scripts' shapes, all copies
+   equal, u8x4 bit-exact on P5's hashes and P7's payloads, the tf32
+   mismatches counted; each kernel, plain version and library call timed;
+   then both entry points, with their launch counts set to 0 before.
+
+Every entry of the kernels line has its bound: the larger of the bytes
+the function must move over the memory rate and its operations over the
+card's peak for their type (``bound``).
 
 Before the last lines come ``{"roofline": {...}}``, the card's name and
 power limit, and ``{"kernels": [...]}``; the last is
@@ -59,8 +70,9 @@ try:
         PipelineDecoder
     from nanopore_dna_storage_tpu_torch.pipeline.simulate import \
         simulate_posts
-    from nanopore_dna_storage_tpu_torch.probes import (merge_roofline,
-                                                       treepop)
+    from nanopore_dna_storage_tpu_torch.probes import (expand,
+                                                       merge_roofline,
+                                                       mxu_expand, treepop)
 except ImportError as e:
     sys.exit(f"chip_smoke: FAIL: the port package is not beside this "
              f"script: {e}")
@@ -69,8 +81,20 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "decode"
 SEED = 0
 # every kernel library and its sources in csrc/
-LIBS = {"lva_acs": ["lva_acs.cu"], "probes": ["probes.cu"]}
-PROBE_SOURCE = "nanopore_dna_storage_tpu_torch/csrc/probes.cu"
+LIBS = {"lva_acs": ["lva_acs.cu"], "probes": ["probes.cu"],
+        "expand": ["expand.cu"], "mxu_expand": ["mxu_expand.cu"]}
+CSRC = "nanopore_dna_storage_tpu_torch/csrc"
+PROBE_SOURCE = f"{CSRC}/probes.cu"
+# H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): device
+# memory, and the tensor cores in operations
+# (2 per MAC) per second by operand type; u8x4 runs on the int8 rate
+HBM_BYTES_PER_S = 3.35e12
+TC_OPS_PER_S = {"tf32": 495e12, "bf16": 989e12, "u8x4": 1979e12}
+# the script kernel each one-hot mode stands in for (f32 DEFAULT, bf16,
+# HIGHEST)
+REPLACES_MXU = {"tf32": "scripts/tpu_mxu_probe2.py:33",
+                "bf16": "scripts/tpu_mxu_probe2.py:33",
+                "u8x4": "scripts/tpu_mxu_expand_probe.py:53"}
 
 
 def log(msg: str) -> None:
@@ -214,11 +238,13 @@ class CheckedACS:
         self.blocks = self.mixed = 0
         self.err = 0.0
         self.ms = self.plain_ms = self.timed_B = None
+        self.timed_args = None  # (start1, active) of the timed block
 
     def __call__(self, tabs, prev, stale, *args):
         *rest, sel = args
         if self.blocks == self.timed:
             self.timed_B = sel.shape[0]
+            self.timed_args = (rest[2].tolist(), rest[3].tolist())
             scratch = [x.clone() for x in stale]
             self.ms = cuda_ms(lambda: lva_acs.acs_block(
                 tabs, prev, scratch, *args), reps=20, warmup=3)
@@ -263,7 +289,28 @@ def phase_batch(enc, exp, device):
         f"ms/block")
     if check.mixed == 0:
         fail("no checked block mixed active and inactive reads")
-    return (check.timed_B, check.ms, check.plain_ms), check.err
+    return (check.timed_B, check.ms, check.plain_ms), check.timed_args, \
+        check.err
+
+
+def acs_bound(dec, start1, active):
+    """(bound_ms, bound_by, executed ops, bytes) of one ACS block step
+    whose reads have window starts ``start1`` and flags ``active``: the ops
+    the kernel executes (``acs_executed_ops``, valid states and real merge
+    rows of each active read) over the FP32 lane peak, against the bytes
+    it must move: per active read the W + 1 rows of the three previous
+    buffers (scores, two hashes) it reads and the W rows it writes, and
+    the int8 selections of every read."""
+    spec, tabs = dec.spec, dec.tabs
+    L, C, W = spec.list_size, spec.code.nstate_conv, spec.window
+    rows = (1 + (tabs["qmap"][:, 1:] >= 0).sum(1)).tolist()
+    ops = sum(merge_roofline.acs_executed_ops(
+        spec, rows, tabs["valid"][s:s + W] != 0)
+        for s, a in zip(start1, active) if a)
+    cells = 8 * L * C
+    nbytes = sum(active) * (2 * W + 1) * cells * 12 + len(start1) * W * cells
+    peak, _ = merge_roofline.lane_peak()
+    return (*bound(nbytes, ops, peak), ops, nbytes)
 
 
 def phase_goldens(device):
@@ -328,6 +375,18 @@ def build_kernels() -> None:
                 log(f"  ptxas: {line.strip()}")
     _build.load_lva_acs()
     _build.load_probes()
+    _build.load_expand()
+    _build.load_mxu_expand()
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``nbytes`` (each input read once, each output written once)
+    and does ``ops`` operations at a peak of ``ops_per_s``."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / ops_per_s
+    return (by_bytes, "bytes") if by_bytes >= by_ops else \
+        (by_ops, "operations")
 
 
 def same_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -470,11 +529,200 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
     replaces = {"merge": "scripts/tpu_vpu_roofline.py:48",
                 "stream": "scripts/tpu_vpu_roofline.py:68",
                 "treepop": "scripts/tpu_treepop_probe.py:19"}
-    entries = [{"name": f"probe_{k}", "route": "cuda", "source": PROBE_SOURCE,
-                "replaces": replaces[k], "launches": launches[k],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-               for k, (err, ms, plain_ms) in found.items()]
+    # merge and stream: 12 element-ops per element and round over the G
+    # copies, reading scores and two hashes once and writing G slots;
+    # tree-pop: 63 pair steps (a compare, two selects) per column, reading
+    # [NC, F, CT] scores and payloads and writing one of each per column
+    cols = f * ct
+    work = {k: (G * R * merge_roofline.MERGE_SWEEPS * nc * cols,
+                3 * 4 * nc * cols + 4 * G * cols)
+            for k in ("merge", "stream")}
+    tcols = shape[1] * shape[2]
+    work["treepop"] = ((shape[0] - 1) * 3 * tcols,
+                       8 * shape[0] * tcols + 8 * tcols)
+    entries = []
+    for k, (err, ms, plain_ms) in found.items():
+        ops, nbytes = work[k]
+        bound_ms, bound_by = bound(nbytes, ops, peak)
+        entries.append({
+            "name": f"probe_{k}", "route": "cuda", "source": PROBE_SOURCE,
+            "replaces": replaces[k], "launches": launches[k],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no one PyTorch call computes a merge with dual-hash knockout,
+            # the stream's op chain or a max with the winner's payload
+            "library_ms": None})
     return entries, roofline
+
+
+def graph_ms(fn) -> float:
+    """Device ms of one ``fn()``, replayed from a CUDA graph (launch-bound
+    shapes: the host's launch cost drops out)."""
+    return expand.graph_us(fn) / 1e3
+
+
+def time_lane_map(case_name: str, form: str):
+    """(kernel, plain, library) ms of one script case at its shape, all
+    three from CUDA graphs, its (bound_ms, bound_by) (the function reads
+    its source columns once and writes its output once), and the script's
+    kernel it replaces."""
+    case = next(c for c in expand.CASES if c.name == case_name)
+    _, xt = case.inputs("cuda")
+    kernel, plain = case.bind(xt, form)
+    if case.map_ == "transpose":
+        def library():
+            return xt.t().contiguous()
+        nbytes = 2 * 4 * xt.numel()
+    else:  # the element map: repeat_interleave of the first C / k columns
+        n = xt.shape[1] // case.k
+
+        def library():
+            return torch.repeat_interleave(xt[:, :n], case.k, dim=1,
+                                           output_size=xt.shape[1])
+        nbytes = 4 * (xt.shape[0] * n + xt.numel())
+    same_bits(f"{case_name} library call", library(), plain())
+    return (*(graph_ms(f) for f in (kernel, plain, library)),
+            *bound(nbytes, 0, 1.0), case.replaces)
+
+
+def onehot_library(xt, et, mode: str, G: int):
+    """One PyTorch call computing ``mode``'s product over G copies: the
+    TF32 matmul, the bf16 matmul (bf16 out) or, for u8x4, the full-f32
+    matmul, exact on a one-hot E."""
+    if mode == "tf32":
+        def call():
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return torch.matmul(xt.expand(G, *xt.shape), et)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        return call
+    if mode == "bf16":
+        xb, eb = xt.bfloat16(), et.bfloat16()
+        return lambda: torch.matmul(xb.expand(G, *xb.shape), eb)
+    xf, ef = xt.view(torch.float32), et.float()
+    return lambda: torch.matmul(xf.expand(G, *xf.shape), ef)
+
+
+def phase_expand():
+    """Phase 5: the expansion-family probes. Every lane-map form, the
+    transpose and every one-hot product mode against its plain version on
+    the card, bit for bit, at the scripts' shapes, with all copies equal;
+    the tf32 mismatches counted; each kernel, plain version and library
+    call timed; then both entry points, with the launch counts set to 0
+    before and read after. Returns the kernels' JSON entries."""
+    err = {f: 0.0 for f in (*expand.FORMS, "transpose")}
+    for case in expand.CASES:
+        _, xt = case.inputs("cuda")
+        for form in case.forms:
+            kernel, plain = case.bind(xt, form)
+            got = kernel(4)
+            err[form] = max(err[form], same_bits(
+                f"{case.name} [{form}]", got, plain().expand_as(got)))
+    log(f"phase 5: {len(expand.CASES)} lane-map and transpose cases, every "
+        f"form bit-equal to its plain version, 4 copies each, all equal")
+
+    mx = mxu_expand
+    h, x5, E5 = mx.p5_inputs()
+    x7, E7 = mx.p7_inputs()
+    checks = [*(("P5 halves", x5, E5, m, 256) for m in ("u8x4", "tf32")),
+              ("P5 hashes", h, E5, "u8x4", 256),
+              *((f"P6 {label.strip()}", *mx.p6_inputs(r, k, n), m, 256)
+                for r, k, n, m, label in mx.P6_POINTS),
+              *(("P7 payloads", x7, E7, m, 512) for m in ("u8x4", "tf32"))]
+    for label, x, E, mode, G in checks:
+        xt, et = mx.mode_inputs(x, E, mode, "cuda")
+        got = mx.onehot_mma(xt, et, mode, G)
+        want = mx.onehot_mma_ref(xt, et, mode)
+        err[mode] = max(err.get(mode, 0.0), same_bits(
+            f"onehot {mode} {label}", got, want.expand_as(got)))
+        K, N = E.shape
+        wrong = mx._wrong(got[:1], x[:, (np.arange(N) * K) // N])
+        log(f"phase 5: onehot {mode} {label} [{x.shape[0]},{K}]@[{K},{N}] "
+            f"x{G}: bit-equal to its plain version, all copies equal; "
+            f"{wrong} of {x.shape[0] * N} elements differ from the exact "
+            f"selection")
+        if mode == "u8x4" and wrong:
+            fail(f"u8x4 is not bit-exact on {label}")
+        del got, want
+    torch.cuda.empty_cache()
+
+    timed = {}
+    for form, name in (("gather", "p3.jnp_repeat.k4"),
+                       ("shfl", "p3.jnp_repeat.k4"),
+                       ("butterfly", "p4.butterfly.k4"),
+                       ("transpose", "p2.transpose")):
+        timed[form] = time_lane_map(name, form)
+        ms, plain_ms, lib_ms, bms = timed[form][:4]
+        log(f"phase 5: {form} at {name}: kernel {ms:.6f} ms, plain "
+            f"{plain_ms:.6f} ms, library {lib_ms:.6f} ms, bound {bms:.6f} "
+            f"ms (CUDA graphs of {expand.GRAPH_CALLS} calls)")
+    big = 4096  # copies: the device rate of each form, past launch latency
+    for form in expand.FORMS:
+        case = next(c for c in expand.CASES if c.name == (
+            "p4.butterfly.k4" if form == "butterfly" else "p3.jnp_repeat.k4"))
+        _, xt = case.inputs("cuda")
+        kernel, _ = case.bind(xt, form)
+        ms = cuda_ms(lambda: kernel(big), reps=5, warmup=1)
+        log(f"phase 5: {form} [8,2048] k=4 x {big} copies: {ms:.4f} ms, "
+            f"{big * xt.numel() / (ms / 1e3) / 1e9:.3f} G elements/s "
+            f"written ({big * xt.numel() * 4 / (ms / 1e3) / 1e9:.1f} GB/s)")
+    torch.cuda.empty_cache()
+
+    G = 256
+    for mode, (x, E) in (("tf32", (x5, E5)), ("bf16", mx.p6_inputs(256, 128,
+                                                                   512)),
+                         ("u8x4", (x5, E5))):
+        xt, et = mx.mode_inputs(x, E, mode, "cuda")
+        (M, K), N = xt.shape, et.shape[1]
+        ms = cuda_ms(lambda: mx.onehot_mma(xt, et, mode, G), reps=10,
+                     warmup=2)
+        plain_ms = cuda_ms(lambda: mx.onehot_mma_ref(
+            xt.expand(G, M, K), et, mode), reps=3)
+        lib_ms = cuda_ms(onehot_library(xt, et, mode, G), reps=10, warmup=2)
+        nbytes = 4 * xt.numel() + et.numel() * et.element_size() \
+            + 4 * G * M * N
+        ops = 2 * G * M * K * N * (4 if mode == "u8x4" else 1)
+        timed[mode] = (ms, plain_ms, lib_ms,
+                       *bound(nbytes, ops, TC_OPS_PER_S[mode]),
+                       REPLACES_MXU[mode])
+        log(f"phase 5: onehot {mode} [{M},{K}]@[{K},{N}] x{G}: kernel "
+            f"{ms:.4f} ms ({G * M * K * N / (ms / 1e3) / 1e12:.3f} T MAC/s), "
+            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{timed[mode][3]:.4f} ms by {timed[mode][4]}")
+        torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    for counts in (expand.LAUNCHES, mx.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    ok = expand.main([])
+    ok = mx.main([]) and ok
+    torch.cuda.synchronize()
+    launches = {**expand.LAUNCHES, **mx.LAUNCHES}
+    log(f"phase 5: probe entry points launched {launches}")
+    if not ok:
+        fail("an expansion probe disagrees with the result its script "
+             "checks against")
+    if not all(launches.values()):
+        fail(f"an expansion kernel was not launched by its entry point: "
+             f"{launches}")
+
+    entries = []
+    for k, (ms, plain_ms, lib_ms, bound_ms, bound_by, replaces) in \
+            timed.items():
+        mxu = k in mx.MODES
+        entries.append({
+            "name": f"mxu_onehot_{k}" if mxu else
+            "expand_transpose" if k == "transpose" else
+            f"expand_lane_map_{k}",
+            "route": "cuda",
+            "source": f"{CSRC}/{'mxu_expand' if mxu else 'expand'}.cu",
+            "replaces": replaces, "launches": launches[k],
+            "max_abs_err": err[k], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms})
+    return entries
 
 
 def main() -> int:
@@ -502,7 +750,13 @@ def main() -> int:
     dec = LVADecoder(headline, device="cuda")
     acs_ms, _, err, acs_start1 = phase_kernel(dec, posts[0])
     log(f"phase 1: done in {time.perf_counter() - t0:.1f} s")
-    (B, ms, plain_ms), err_b = phase_batch(enc, exp, "cuda")
+    (B, ms, plain_ms), (start1, active), err_b = phase_batch(enc, exp,
+                                                            "cuda")
+    acs_bound_ms, acs_bound_by, acs_ops, acs_bytes = acs_bound(dec, start1,
+                                                               active)
+    log(f"lva_acs bound at B={B}: {acs_ops} executed ops over the lane "
+        f"peak, {acs_bytes} bytes: {acs_bound_ms:.4f} ms, by "
+        f"{acs_bound_by}")
     err = max(err, err_b)
 
     t0 = time.perf_counter()
@@ -522,6 +776,10 @@ def main() -> int:
     probes, roofline = phase_probes(dec, acs_ms, acs_start1)
     log(f"phase 4: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    expansions = phase_expand()
+    log(f"phase 5: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs time below: one block step at the main path's B={B}")
     log(json.dumps({"roofline": roofline}))
@@ -535,7 +793,11 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-    }, *probes]}))
+        "bound_ms": acs_bound_ms,
+        "bound_by": acs_bound_by,
+        # no one PyTorch call computes a list-Viterbi block step
+        "library_ms": None,
+    }, *probes, *expansions]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -126,3 +126,38 @@ def load_probes() -> ctypes.CDLL:
         lib.probe_error_string.restype = ctypes.c_char_p
         _LIBS["probes"] = lib
     return _LIBS["probes"]
+
+
+def load_expand() -> ctypes.CDLL:
+    """The lane-map and transpose probe kernels (``csrc/expand.cu``), built
+    on first call."""
+    if "expand" not in _LIBS:
+        lib = ctypes.CDLL(str(build("expand", ["expand.cu"])))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # x, y, then form, map, p, cin, rout, cout, copies, then masks, the
+        # host shift array, nst, tile_start and the stream
+        lib.expand_lane_map_launch.argtypes = (
+            [p, p] + [i] * 7 + [p, ctypes.POINTER(i), i, i, p])
+        lib.expand_lane_map_launch.restype = i
+        # x, y, then R, C, copies and the stream
+        lib.expand_transpose_launch.argtypes = [p, p, i, i, i, p]
+        lib.expand_transpose_launch.restype = i
+        lib.expand_error_string.argtypes = [i]
+        lib.expand_error_string.restype = ctypes.c_char_p
+        _LIBS["expand"] = lib
+    return _LIBS["expand"]
+
+
+def load_mxu_expand() -> ctypes.CDLL:
+    """The one-hot tensor-core product (``csrc/mxu_expand.cu``), built on
+    first call."""
+    if "mxu_expand" not in _LIBS:
+        lib = ctypes.CDLL(str(build("mxu_expand", ["mxu_expand.cu"])))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # x, e, y, then mode, M, K, N, copies and the stream
+        lib.mxu_onehot_launch.argtypes = [p, p, p] + [i] * 5 + [p]
+        lib.mxu_onehot_launch.restype = i
+        lib.mxu_error_string.argtypes = [i]
+        lib.mxu_error_string.restype = ctypes.c_char_p
+        _LIBS["mxu_expand"] = lib
+    return _LIBS["mxu_expand"]

@@ -5,8 +5,9 @@ viterbi_convolutional_code.cpp:589-858).
 Counterpart of ``nanopore_dna_storage_tpu/ops/lva.py`` ``LVADecoder``
 (``schedule``, ``decode``) and ``_unpack_msgs``, with the same
 ``decode(posts, nblks) -> (msgs, scores, valid)`` contract. The decode
-runs on ``device``: the ACS step is the CUDA kernel on a CUDA device and
-its plain PyTorch version on the CPU.
+runs on ``device``, the card unless the caller passes ``device="cpu"``:
+the ACS step is the CUDA kernel on a CUDA device and its plain PyTorch
+version on the CPU. Without a card the default raises at once.
 """
 from __future__ import annotations
 
@@ -15,9 +16,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from nanopore_dna_storage_tpu.trellis import tables as tb
-
 from ..config import DecodeConfig
+from ..trellis import tables as tb
 from . import lva_decode
 from .lva_acs import acs_block
 from .lva_consts import DecodeSpec, LVAConsts
@@ -39,9 +39,10 @@ def unpack_msgs(spec: DecodeSpec, words: np.ndarray) -> np.ndarray:
 
 
 class LVADecoder:
-    """List-Viterbi decoder for one DecodeConfig on one torch device."""
+    """List-Viterbi decoder for one DecodeConfig on one torch device
+    (``cuda`` by default; ``cpu`` runs the plain ACS step)."""
 
-    def __init__(self, cfg: DecodeConfig, device="cpu"):
+    def __init__(self, cfg: DecodeConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

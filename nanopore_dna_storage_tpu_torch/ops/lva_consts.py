@@ -17,11 +17,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from nanopore_dna_storage_tpu.coding.conv import (ConvCode, NSTATE_CRF,
-                                                  make_conv_code)
-from nanopore_dna_storage_tpu.trellis import tables as tb
-
+from ..coding.conv import ConvCode, NSTATE_CRF, make_conv_code
 from ..config import DecodeConfig
+from ..trellis import tables as tb
 
 NCRF = NSTATE_CRF  # 8 flip-flop CRF states
 

@@ -1,14 +1,11 @@
 """Pipeline stages of the port.
 
-``decode`` and ``simulate`` are re-hosted here. Encoding and the published
-experiment configs are numpy-only, so they are the reference package's own
-(``nanopore_dna_storage_tpu/pipeline/encode.py`` and ``experiments.py``),
-re-exported.
+``decode`` and ``simulate`` are re-hosted here on the port's decoder.
+``encode`` and ``experiments`` are the port's own numpy copies of the JAX
+package's modules of the same names.
 """
 
-from nanopore_dna_storage_tpu.pipeline.encode import (EncodeResult,
-                                                      encode_bytes,
-                                                      encode_file)
-from nanopore_dna_storage_tpu.pipeline.experiments import experiment
+from .encode import EncodeResult, encode_bytes, encode_file
+from .experiments import experiment
 
 __all__ = ["EncodeResult", "encode_bytes", "encode_file", "experiment"]

@@ -15,12 +15,10 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from nanopore_dna_storage_tpu.coding.framing import (check_and_extract,
-                                                     extract_payload)
-from nanopore_dna_storage_tpu.coding.rs import rs_decode_oligos
-from nanopore_dna_storage_tpu.io.post import pack_posts
-
+from ..coding.framing import check_and_extract, extract_payload
+from ..coding.rs import rs_decode_oligos
 from ..config import ConvCodeConfig, DecodeConfig, ExperimentConfig
+from ..io.post import pack_posts
 from ..ops.lva import LVADecoder
 from ..ops.lva_acs import acs_block
 
@@ -40,10 +38,11 @@ class ListDecodeOutcome:
 
 class PipelineDecoder:
     """Forward and reverse-complement decoders of one experiment on one
-    torch device (``pipeline/decode.py`` ``PipelineDecoder``)."""
+    torch device, ``cuda`` unless the caller asks for ``cpu``
+    (``pipeline/decode.py`` ``PipelineDecoder``)."""
 
     def __init__(self, exp: ExperimentConfig, list_size: int,
-                 max_deviation: Optional[int] = 20, *, device="cpu"):
+                 max_deviation: Optional[int] = 20, *, device="cuda"):
         self.exp = exp
         self.list_size = list_size
         base = dict(mem=exp.conv_mem, rate=exp.conv_rate,

@@ -4,8 +4,8 @@ render synthetic flip-flop posteriors, decode, CRC/index, vote, RS.
 Counterpart of ``nanopore_dna_storage_tpu/pipeline/simulate.py``
 (``SimStats``, ``simulate_posts``, ``simulate_and_decode``). The channel
 (``signal/channel.py``) and the posterior renderer (``ops/synthetic.py``)
-are the reference's numpy modules, so one seed gives the same reads in both
-packages.
+are the port's own copies of the reference's numpy modules, so one seed
+gives the same reads in both packages.
 """
 from __future__ import annotations
 
@@ -14,11 +14,10 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from nanopore_dna_storage_tpu.coding import conv as convmod
-from nanopore_dna_storage_tpu.ops.synthetic import synthetic_post
-from nanopore_dna_storage_tpu.signal.channel import simulate_indelsubs
-
+from ..coding import conv as convmod
 from ..config import ExperimentConfig
+from ..ops.synthetic import synthetic_post
+from ..signal.channel import simulate_indelsubs
 from . import EncodeResult
 from .decode import PipelineDecoder, majority_vote, recover_file
 
@@ -66,12 +65,13 @@ def simulate_and_decode(enc: EncodeResult, exp: ExperimentConfig,
                         list_size: int = 8, seed: int = 0,
                         sub_prob: float = 0.004, del_prob: float = 0.0085,
                         ins_prob: float = 0.0005,
-                        max_deviation: Optional[int] = 20, device="cpu"):
+                        max_deviation: Optional[int] = 20, device="cuda"):
     """Full loop: sample reads -> decode -> CRC/index -> vote -> RS -> bytes.
 
     ``batch`` reads are decoded together; each read holds its selections,
     ``[T, W, 8L, C]`` int8, for the whole decode, so the caller sizes
-    ``batch`` to the device memory. Returns (ok, recovered_bytes,
+    ``batch`` to the device memory. The decode runs on ``device``, the
+    card unless the caller passes ``"cpu"``. Returns (ok, recovered_bytes,
     SimStats).
     """
     rng = np.random.default_rng(seed)

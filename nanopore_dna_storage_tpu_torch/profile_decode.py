@@ -27,9 +27,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from nanopore_dna_storage_tpu.io.post import pack_posts
-
 from .config import ConvCodeConfig, DecodeConfig
+from .io.post import pack_posts
 from .ops.lva import LVADecoder
 from .ops.lva_acs import acs_block
 from .pipeline import encode_bytes, experiment

@@ -22,10 +22,12 @@ from nanopore_dna_storage_tpu.config import DecodeConfig as JaxDecodeConfig
 from nanopore_dna_storage_tpu.ops import lva_pallas
 from nanopore_dna_storage_tpu.ops.lva import LVADecoder as JaxLVADecoder
 from nanopore_dna_storage_tpu.ops.synthetic import synthetic_post
+from nanopore_dna_storage_tpu_torch import config as port_config
 from nanopore_dna_storage_tpu_torch.config import DecodeConfig
 from nanopore_dna_storage_tpu_torch.ops import lva_acs
 from nanopore_dna_storage_tpu_torch.ops.lva_consts import (
     DecodeSpec, LVAConsts, from_pallas_state, sel_format)
+from test_torch_host import twin
 
 torch.set_num_threads(1)
 
@@ -40,11 +42,12 @@ def _read(code_cfg, seed):
     return synthetic_post(bases, rng, noise=0.9)
 
 
-def _jax_states(cfg, post, t_stop):
+def _jax_states(code, cfg, post, t_stop):
     """Pallas decoder state (prev, stale) before block ``t_stop``, plus the
-    decoder and the read's beam starts."""
+    decoder and the read's beam starts; ``code`` is the JAX package's config
+    of ``cfg.code``."""
     jdec = JaxLVADecoder(JaxDecodeConfig(
-        code=cfg.code, list_size=cfg.list_size,
+        code=code, list_size=cfg.list_size,
         max_deviation=cfg.max_deviation, backend="pallas_interpret"))
     pd = jdec._pallas
     starts = jdec.schedule(np.array([post.shape[0]]), post.shape[0])[0]
@@ -79,9 +82,10 @@ CASES = [
 def test_acs_block_matches_pallas(rate, rc, block, active, dev):
     L = 4
     code = ConvCodeConfig(mem=6, rate=rate, msg_len=30, rc=rc)
-    cfg = DecodeConfig(code=code, list_size=L, max_deviation=dev)
+    cfg = DecodeConfig(code=twin(code, port_config), list_size=L,
+                       max_deviation=dev)
     post = _read(code, seed=rate * 10 + rc)
-    pd, step, prev, stale, starts = _jax_states(cfg, post, block)
+    pd, step, prev, stale, starts = _jax_states(code, cfg, post, block)
     start1 = int(starts[block]) + 1
     if block == 1:
         assert start1 == 1  # the window covers trellis position 0

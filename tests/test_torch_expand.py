@@ -1,0 +1,229 @@
+"""Parity of the port's expansion probes (``probes/expand.py``) with the TPU
+probe scripts they replace: ``scripts/tpu_pallas_probe2.py`` (P2),
+``scripts/tpu_repeat_probe.py`` (P3) and ``scripts/tpu_expand_probe.py``
+(P4), imported by file path.
+
+Each script case runs as the script runs it, with ``pl.pallas_call`` in
+interpret mode (and, for P3 and P4, ``jax.jit`` as the identity and the
+timing loop cut to one call); the inputs and output of its kernel are
+captured and the port's plain versions (``lane_map_ref``,
+``transpose_ref``) and CPU wrappers run on the same input. The tolerance is
+zero, bit for bit: every case only moves f32 values.
+
+Two kernels cannot be traced by this JAX: P2's ``p_take`` and P3's
+``roll_butterfly`` close over numpy arrays (the take index, the stage
+masks), and ``pallas_call`` refuses a kernel that captures constants. For
+those the test runs a copy of the kernel body that takes the index or the
+masks as an input, and also checks the result against the numpy result the
+script itself checks against.
+"""
+import importlib.util
+import pathlib
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from nanopore_dna_storage_tpu_torch.probes import expand as ex
+
+torch.set_num_threads(1)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+P2 = _script("tpu_pallas_probe2")
+P3 = _script("tpu_repeat_probe")
+P4 = _script("tpu_expand_probe")
+
+
+def _capture(monkeypatch, mod):
+    """Swap ``mod``'s pallas_call for interpret mode (and its jax.jit and
+    fori_loop for one plain call); return the list the first concrete call
+    appends (inputs, output) to."""
+    seen = []
+
+    def pallas_call(kernel, **kw):
+        fn = pl.pallas_call(kernel, interpret=True, **kw)
+
+        def call(*args):
+            out = fn(*args)
+            if not seen:
+                seen.append(([np.array(a) for a in args], np.array(out)))
+            return out
+        return call
+
+    monkeypatch.setattr(mod, "pl", types.SimpleNamespace(
+        pallas_call=pallas_call, BlockSpec=pl.BlockSpec))
+    monkeypatch.setattr(mod, "jax", types.SimpleNamespace(
+        jit=lambda f: f, ShapeDtypeStruct=jax.ShapeDtypeStruct,
+        lax=types.SimpleNamespace(
+            fori_loop=lambda lo, hi, body, init: body(jnp.int32(lo), init),
+            broadcasted_iota=jax.lax.broadcasted_iota)))
+    return seen
+
+
+def _take_kernel(x_ref, idx_ref, o_ref):
+    """``p_take``'s body, its index passed in instead of closed over."""
+    o_ref[...] = jnp.take(x_ref[...], idx_ref[...], axis=1)
+
+
+def _roll_butterfly(k):
+    """P3 ``roll_butterfly``'s body, its masks passed in; the masks and
+    shifts are the script's own loop, which is ``tpu_expand_probe.py``
+    ``bfly_masks`` and ``shifts``."""
+    ct = P3.CT
+    masks = P4.bfly_masks(ct, int(np.log2(k)))
+    shifts = [ct >> (1 + i) for i in range(int(np.log2(ct)))] * 2
+
+    def kernel(x_ref, m_ref, o_ref):
+        sl = x_ref[:][:, : ct // k]
+        y = jnp.tile(sl, (1, k))
+        for s, d in zip(range(masks.shape[0]), shifts):
+            y = jnp.where(m_ref[s] != 0, pltpu.roll(y, d, 1), y)
+        o_ref[:] = y
+    return kernel, masks
+
+
+def _script_case(case, monkeypatch, capsys):
+    """Run the script's own code for ``case``; return its kernel's input
+    x, its output y, and the numpy result the script checks against."""
+    script, fn, *rest = case.name.split(".")
+    k = int(rest[0][1:]) if rest else 2
+    if case.name == "p2.take":
+        x = np.random.default_rng(0).standard_normal((8, P2.C)).astype(
+            np.float32)
+        idx = (np.arange(P2.C) // P2.K).astype(np.int32)
+        y = pl.pallas_call(_take_kernel, interpret=True, out_shape=jax.
+                           ShapeDtypeStruct(x.shape, jnp.float32))(x, idx)
+        return x, np.array(y), x[:, np.arange(P2.C) // P2.K]
+    if fn == "roll_butterfly":
+        kernel, masks = _roll_butterfly(k)
+        x = np.random.default_rng(0).standard_normal((8, P3.CT)).astype(
+            np.float32)
+        y = pl.pallas_call(kernel, interpret=True, out_shape=jax.
+                           ShapeDtypeStruct(x.shape, jnp.float32))(x, masks)
+        return x, np.array(y), x[:, : P3.CT // k].repeat(k, axis=1)
+    mod = {"p2": P2, "p3": P3, "p4": P4}[script]
+    seen = _capture(monkeypatch, mod)
+    if script == "p2":
+        P2.ALL[fn]()
+    else:
+        mod.run(fn, k)
+    out = capsys.readouterr().out
+    assert seen, out
+    (x, *_), y = seen[0]
+    if script == "p2" and fn == "pltpurepeat_semantics":
+        assert "pltpu.repeat semantics: tile" in out
+    elif script == "p2":
+        assert f"{fn} OK" in out
+    else:  # P3's pltpu.repeat tiles, so its element-repeat check fails
+        assert f"correct={fn != 'pltpu_repeat'}" in out
+    return x, y, case.want(x)
+
+
+@pytest.mark.parametrize("name", [c.name for c in ex.CASES])
+def test_case_matches_the_script_kernel(name, monkeypatch, capsys):
+    case = next(c for c in ex.CASES if c.name == name)
+    x, y, script_want = _script_case(case, monkeypatch, capsys)
+    assert np.array_equal(case.want(x).view(np.uint32),
+                          np.asarray(script_want).view(np.uint32))
+    xt = torch.from_numpy(np.ascontiguousarray(x))
+    for form in case.forms:
+        kernel, plain = case.bind(xt, form)
+        assert np.array_equal(plain().numpy().view(np.uint32),
+                              y.view(np.uint32)), form
+        got = kernel(3)  # the CPU wrapper: the plain version, 3 copies
+        assert got.shape == (3, *y.shape)
+        assert all(np.array_equal(g.numpy(), y) for g in got)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_pltpu_repeat_tiles_and_differs_from_the_element_repeat(k):
+    x = torch.arange(8 * 64, dtype=torch.float32).reshape(8, 64)
+    tile = ex.lane_map_ref(x, "tile", k)
+    element = ex.lane_map_ref(x, "element", k)
+    assert torch.equal(tile, x[:, : 64 // k].repeat(1, k))
+    assert not torch.equal(tile, element)
+
+
+@pytest.mark.parametrize("ct,logk", [(1024, 1), (2048, 1), (2048, 2)])
+def test_masks_match_the_scripts(ct, logk):
+    """The port's copies of the scripts' mask builders: P4's ``bfly_masks``
+    and ``shifts``, and P2's in-kernel index tracking (one pass, which
+    reaches j >> 1 at ct = 1024)."""
+    masks = ex.bfly_masks(ct, logk)
+    assert np.array_equal(masks, P4.bfly_masks(ct, logk))
+    assert ex.butterfly_shifts(ct, len(masks)) == \
+        tuple(P4.shifts(ct, len(masks)))
+    x = torch.from_numpy(np.random.default_rng(ct).standard_normal(
+        (4, ct)).astype(np.float32))
+    want = ex.lane_map_ref(x, "element", 1 << logk)
+    got = ex.lane_map_ref(x, "element", 1 << logk, "butterfly",
+                          torch.from_numpy(masks),
+                          ex.butterfly_shifts(ct, len(masks)))
+    assert torch.equal(got, want)
+    if logk == 1 and ct == 1024:
+        tracked = ex.tracked_masks(ct, logk)
+        got = ex.lane_map_ref(x, "element", 2, "butterfly",
+                              torch.from_numpy(tracked),
+                              ex.butterfly_shifts(ct, len(tracked)),
+                              start="identity")
+        assert torch.equal(got, want)
+
+
+def test_select_cases():
+    assert ex.select([]) == ex.CASES
+    assert [c.name for c in ex.select(["p3.jnp_repeat"])] == \
+        ["p3.jnp_repeat.k2", "p3.jnp_repeat.k4"]
+    assert len(ex.select(["p2"])) == 7
+    with pytest.raises(ValueError, match="no case"):
+        ex.select(["p9"])
+
+
+@pytest.mark.parametrize("call", ["lane_map", "transpose"])
+def test_cpu_tensors_take_the_plain_path(call):
+    x = torch.randn(8, 64)
+    launches = dict(ex.LAUNCHES)
+    if call == "transpose":
+        assert torch.equal(ex.transpose(x, 2)[1], x.t())
+    else:
+        assert torch.equal(ex.lane_map(x, "pair", copies=2)[1],
+                           ex.lane_map_ref(x, "pair"))
+    assert ex.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("form", ex.FORMS)
+def test_unsupported_device_raises(form):
+    x = torch.empty((8, 64), dtype=torch.float32, device="meta")
+    kw = {}
+    if form == "butterfly":
+        kw = dict(masks=torch.zeros((1, 64), dtype=torch.int32),
+                  shifts=(1,))
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        ex.lane_map(x, "element", 2, form, **kw)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        ex.transpose(x)
+
+
+def test_bad_arguments_raise():
+    x = torch.randn(8, 64)
+    with pytest.raises(ValueError, match="element map only"):
+        ex.lane_map(x, "tile", 2, "shfl")
+    with pytest.raises(ValueError, match="power of two"):
+        ex.lane_map(x, "element", 3)
+    with pytest.raises(ValueError, match="one mask row per shift"):
+        ex.lane_map(x, "element", 2, "butterfly",
+                    masks=torch.zeros((2, 64), dtype=torch.int32),
+                    shifts=(1,))

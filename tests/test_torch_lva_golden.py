@@ -21,7 +21,7 @@ def _golden(golden_dir, idx):
         code=ConvCodeConfig(mem=case["mem"], rate=case["rate"],
                             msg_len=case["msg_len"], rc=case["rc"]),
         list_size=case["list_size"], max_deviation=case["max_deviation"])
-    msgs, _, valid = LVADecoder(cfg).decode(
+    msgs, _, valid = LVADecoder(cfg, device="cpu").decode(
         _load_post(golden_dir, case["name"])[None])
     got = ["".join(map(str, m)) for m, v in zip(msgs[0], valid[0]) if v]
     assert got == _ref_lists(golden_dir, case["name"]), case["name"]

@@ -1,8 +1,9 @@
 """The port's decode slice as a whole, against the JAX pipeline: encode ->
 simulated reads -> list-Viterbi -> CRC/index -> majority vote -> RS.
 
-Same inputs from one numpy seed go through both packages; the lists, the
-per-read (index, payload) and the recovered bytes must be identical.
+Same inputs from one numpy seed go through both packages, each with its
+own config classes built from the same fields; the lists, the per-read
+(index, payload) and the recovered bytes must be identical.
 """
 import dataclasses
 import os
@@ -18,8 +19,11 @@ from nanopore_dna_storage_tpu.coding.framing import frame_oligos
 from nanopore_dna_storage_tpu.config import ExperimentConfig
 from nanopore_dna_storage_tpu.pipeline import decode as jax_decode
 from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
+from nanopore_dna_storage_tpu_torch import config as port_config
+from nanopore_dna_storage_tpu_torch import pipeline as port_pipeline
 from nanopore_dna_storage_tpu_torch.pipeline import decode as port_decode
 from nanopore_dna_storage_tpu_torch.pipeline import simulate as port_sim
+from test_torch_host import twin
 
 torch.set_num_threads(1)
 
@@ -27,6 +31,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 # test_pipeline.py's small config: m=6 r=1/2, 4 bytes per oligo
 EXP = ExperimentConfig(bytes_per_oligo=4, rs_redundancy=0.5, conv_mem=6,
                        conv_rate=1)
+PORT_EXP = twin(EXP, port_config)
 DATA = bytes(range(16))
 
 
@@ -40,7 +45,7 @@ def test_decode_posts_matches_jax():
     total = enc.num_oligos_data + enc.num_oligos_rs
     out_j = jax_decode.PipelineDecoder(EXP, list_size=2, max_deviation=8) \
         .decode_posts(posts, rcs, total)
-    dec = port_decode.PipelineDecoder(EXP, list_size=2, max_deviation=8,
+    dec = port_decode.PipelineDecoder(PORT_EXP, list_size=2, max_deviation=8,
                                       device="cpu")
     out_p = dec.decode_posts(posts, rcs, total)
     assert np.array_equal(out_p.valid, out_j.valid)
@@ -53,9 +58,9 @@ def test_decode_posts_matches_jax():
 
 
 def test_simulate_and_decode_recovers_file():
-    enc = encode_bytes(DATA, EXP)
+    enc = port_pipeline.encode_bytes(DATA, PORT_EXP)
     ok, data, stats = port_sim.simulate_and_decode(
-        enc, EXP, num_reads=10, data_size=len(DATA), list_size=1, seed=3,
+        enc, PORT_EXP, num_reads=10, data_size=len(DATA), list_size=1, seed=3,
         sub_prob=0.0, del_prob=0.0, ins_prob=0.0, max_deviation=8,
         batch=10, device="cpu")
     assert stats.crc_pass == 10
@@ -77,7 +82,7 @@ def test_host_stages_match_jax():
     jdec = jax_decode.PipelineDecoder.__new__(jax_decode.PipelineDecoder)
     jdec.exp = EXP
     pdec = port_decode.PipelineDecoder.__new__(port_decode.PipelineDecoder)
-    pdec.exp = EXP
+    pdec.exp = PORT_EXP
     cj = jdec.classify(msgs, valid, total)
     cp = pdec.classify(msgs, valid, total)
     for a in ("index", "payload", "chosen_msg", "valid", "msgs"):
@@ -95,9 +100,10 @@ def test_host_stages_match_jax():
     # RS recovery: all oligos, then with erasures up to the parity count
     full = {i: bytes(enc.payloads[i]) for i in range(total)}
     for voted in (full, {i: full[i] for i in (0, 2, 3, 5)}, vp):
-        assert port_decode.recover_file(voted, EXP, len(DATA)) == \
+        assert port_decode.recover_file(voted, PORT_EXP, len(DATA)) == \
             jax_decode.recover_file(voted, EXP, len(DATA))
-    assert port_decode.recover_file(full, EXP, len(DATA)) == (True, DATA)
+    assert port_decode.recover_file(full, PORT_EXP, len(DATA)) == \
+        (True, DATA)
 
     # error-rate counters
     true_idx = rng.integers(0, total, 12)
@@ -114,8 +120,9 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 import nanopore_dna_storage_tpu_torch
-from nanopore_dna_storage_tpu.coding.conv import conv_encode_bases, make_conv_code
-from nanopore_dna_storage_tpu.ops.synthetic import synthetic_post
+from nanopore_dna_storage_tpu_torch.coding.conv import (conv_encode_bases,
+                                                        make_conv_code)
+from nanopore_dna_storage_tpu_torch.ops.synthetic import synthetic_post
 from nanopore_dna_storage_tpu_torch.config import ConvCodeConfig, DecodeConfig
 from nanopore_dna_storage_tpu_torch.ops.lva import LVADecoder
 rng = np.random.default_rng(0)
@@ -127,7 +134,8 @@ dec = LVADecoder(DecodeConfig(code=code, list_size=2, max_deviation=6),
 msgs, scores, valid = dec.decode(post[None])
 assert (msgs[0, 0] == msg[0]).all() and valid[0, 0]
 assert dec.steps == len(post)
-bad = [m for m in ("jax", "h5py") if m in sys.modules]
+bad = [m for m in sys.modules if m in ("jax", "h5py", "nanopore_dna_storage_tpu")
+       or m.startswith(("jax.", "nanopore_dna_storage_tpu."))]
 assert not bad, bad
 print("ok")
 """
