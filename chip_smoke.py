@@ -33,14 +33,27 @@ Phases, each fatal on failure:
    u8x4) bit-equal to its plain version at the scripts' shapes, all copies
    equal, u8x4 bit-exact on P5's hashes and P7's payloads, the tf32
    mismatches counted; each kernel, plain version and library call timed;
-   then both entry points, with their launch counts set to 0 before.
+   then both entry points, with their launch counts set to 0 before;
+6. the lowering probes (``probes/lowering.py``): every P1 kernel (repeat
+   through ``lane_map``, dynrow, int16, fori in both placements, reshape,
+   alias) bit-equal to its plain version and to the numpy result at the
+   script's shapes, fori also at the ACS kernel's merge shape (NQ = 64,
+   R = 8) and over 256 copies, at one thread per item and at 128 threads
+   per SM; alias returning its own buffer with every row outside a random
+   window unchanged; dynrow and alias at indices and windows outside
+   [0, P), reading and writing nothing outside the buffer; each kernel,
+   plain version and library call timed; P7's plain version and library
+   call at its shape; then the entry point, with its launch counts set to
+   0 before, which also gives the fori rates (both placements at both NQ,
+   and ``local`` at ``regs``'s residency).
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
 card's peak for their type (``bound``).
 
-Before the last lines come ``{"roofline": {...}}``, the card's name and
-power limit, and ``{"kernels": [...]}``; the last is
+Before the last lines come ``{"roofline": {...}}``, ``{"lowering":
+{...}}`` (the fori rates and P7's times), the card's name and power limit,
+and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
 """
@@ -70,7 +83,7 @@ try:
         PipelineDecoder
     from nanopore_dna_storage_tpu_torch.pipeline.simulate import \
         simulate_posts
-    from nanopore_dna_storage_tpu_torch.probes import (expand,
+    from nanopore_dna_storage_tpu_torch.probes import (expand, lowering,
                                                        merge_roofline,
                                                        mxu_expand, treepop)
 except ImportError as e:
@@ -82,7 +95,8 @@ GOLDEN = ROOT / "tests" / "golden" / "decode"
 SEED = 0
 # every kernel library and its sources in csrc/
 LIBS = {"lva_acs": ["lva_acs.cu"], "probes": ["probes.cu"],
-        "expand": ["expand.cu"], "mxu_expand": ["mxu_expand.cu"]}
+        "expand": ["expand.cu"], "mxu_expand": ["mxu_expand.cu"],
+        "lowering": ["lowering.cu"]}
 CSRC = "nanopore_dna_storage_tpu_torch/csrc"
 PROBE_SOURCE = f"{CSRC}/probes.cu"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): device
@@ -377,6 +391,7 @@ def build_kernels() -> None:
     _build.load_probes()
     _build.load_expand()
     _build.load_mxu_expand()
+    _build.load_lowering()
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float):
@@ -725,6 +740,200 @@ def phase_expand():
     return entries
 
 
+def lowering_key(case, form: str) -> str:
+    """The kernels-line key of ``case``'s ``form``: repeat by lane-map form,
+    fori by placement (both shapes), the rest by probe."""
+    probe = case.name.split(".")[0]
+    return probe if form == probe else f"{probe}_{form}"
+
+
+def lowering_work(case, ts):
+    """(ops, bytes) of one call of ``case`` at its shape: each input read
+    once and each output written once; fori's operations are what the
+    function needs, ``lowering.fori_ops`` per column and round, then the
+    pointers' sum."""
+    probe = case.name.split(".")[0]
+    if probe == "repeat":
+        x = ts[0]
+        return 0, 4 * (x.numel() // lowering.REPEAT_K + x.numel())
+    if probe == "dynrow":
+        return 0, 8 * ts[1].shape[1] + 4
+    if probe == "int16":
+        return 0, 6 * ts[0].numel()
+    if probe == "fori":
+        (nq, C), rounds = ts[0].shape, dict(lowering.FORI_POINTS)[
+            ts[0].shape[0]]
+        return C * (rounds * lowering.fori_ops(nq) + nq + 1), \
+            8 * nq * C + 4 * C
+    if probe == "reshape":
+        return 0, 8 * ts[0].numel()
+    # alias: the window's rows of stale and x read, of stale written
+    row = ts[2][0].numel()
+    return 0, 3 * 4 * lowering.ALIAS_WINDOW * row + 4
+
+
+def lowering_library(case, ts):
+    """One PyTorch call computing ``case``'s function, or None where it
+    takes several (int16: a product, an add and a cast; fori: a loop of
+    reductions; alias: an add, an add and a masked write)."""
+    probe = case.name.split(".")[0]
+    if probe == "repeat":
+        x = ts[0]
+        n = x.shape[1] // lowering.REPEAT_K
+        return lambda: torch.repeat_interleave(
+            x[:, :n], lowering.REPEAT_K, dim=1, output_size=x.shape[1])
+    if probe == "dynrow":
+        return lambda: torch.index_select(ts[1], 0, ts[0])
+    if probe == "reshape":
+        x = ts[0]
+        return lambda: x.view(-1, x.shape[-1]).clone()
+    return None
+
+
+def phase_lowering(peak: float):
+    """Phase 6: the lowering probes. Every P1 kernel against its plain
+    version and the numpy result on the card, bit for bit, at the script's
+    shapes, fori also at the ACS kernel's merge shape and over 256 copies,
+    in both placements, one thread per item and at 128 threads per SM;
+    alias's aliasing, its rows outside a random window and the edges of
+    alias and dynrow; each kernel, plain version and library call timed;
+    P7's plain version and library call at its shape; then the entry point,
+    with the launch counts set to 0 before and read after, and its fori
+    rates. ``peak`` is the FP32 lane peak. Returns the kernels' JSON entries
+    and the rates and times for the ``lowering`` line."""
+    lo = lowering
+    G = lo.FORI_COPIES
+    err = {}
+    for case in lo.CASES:
+        arrays, ts = case.inputs("cuda")
+        want = torch.from_numpy(np.ascontiguousarray(case.want(*arrays)))
+        for form in case.forms:
+            kernel, plain = case.bind(ts, form)
+            got = kernel()
+            key = lowering_key(case, form)
+            err[key] = max(err.get(key, 0.0), same_bits(
+                f"{case.name} [{form}]", got, plain()))
+            same_bits(f"{case.name} [{form}] against numpy", got.cpu(), want)
+            if form in lo.PLACEMENTS:
+                rounds = dict(lo.FORI_POINTS)[ts[0].shape[0]]
+                for per_sm in (0, 128):
+                    many = lo.fori(*ts, rounds, form, G, per_sm)
+                    same_bits(f"{case.name} [{form}] x {G} copies at "
+                              f"{per_sm or 'all'} threads/SM", many,
+                              plain().expand_as(many))
+    log(f"phase 6: {len(lo.CASES)} lowering cases, every kernel bit-equal "
+        f"to its plain version and to numpy; fori over {G} copies too, at "
+        f"one thread per item and at 128 threads/SM")
+
+    rng = np.random.default_rng(SEED)
+    P, C, W = 16, 256, lo.ALIAS_WINDOW
+    x = torch.from_numpy(rng.standard_normal((P, 8, C)).astype(
+        np.float32)).cuda()
+    for start in (3, P - W, P - 2, -2, 100, -100):
+        # stale lies between two NaN rows that nothing may touch
+        guard = torch.full((P + 2, 8, C), float("nan"), device="cuda")
+        guard[1:P + 1] = torch.from_numpy(rng.standard_normal(
+            (P, 8, C)).astype(np.float32)).cuda()
+        before = guard.clone()
+        stale = guard[1:P + 1]
+        s = torch.tensor([start], dtype=torch.int32, device="cuda")
+        got = lo.alias(stale, x, s, W)
+        if got.data_ptr() != stale.data_ptr():
+            fail("alias did not update its own buffer")
+        same_bits(f"alias at s={start}", got,
+                  lo.alias_ref(before[1:P + 1].clone(), x, s, W))
+        outside = [p for p in range(P) if not 0 <= p - start < W]
+        same_bits(f"alias rows outside the window at s={start}",
+                  got[outside], before[1:P + 1][outside])
+        same_bits(f"alias guard rows at s={start}", guard[[0, P + 1]],
+                  before[[0, P + 1]])
+    rows, cols = 136, 1024
+    guard = torch.full((rows + 2, cols), float("nan"), device="cuda")
+    guard[1:rows + 1] = torch.from_numpy(rng.standard_normal(
+        (rows, cols)).astype(np.float32)).cuda()
+    xr = guard[1:rows + 1]
+    for index in (0, rows - 1, rows, 1000, 2**31 - 1, -1, -2**31):
+        i = torch.tensor([index], dtype=torch.int32, device="cuda")
+        same_bits(f"dynrow at {index}", lo.dynrow(xr, i),
+                  xr[min(max(index, 0), rows - 1)][None])
+    log("phase 6: alias updates its own buffer, keeps every row outside a "
+        "random window, skips window rows outside [0, P); dynrow clamps its "
+        "index; neither touches the NaN rows around its buffer")
+
+    timed = {}
+    for case in lo.CASES:
+        if case.name == "fori.k1":
+            continue
+        _, ts = case.inputs("cuda")
+        ops, nbytes = lowering_work(case, ts)
+        library = lowering_library(case, ts)
+        for form in case.forms:
+            kernel, plain = case.bind(ts, form)
+            lib_ms = None
+            if library is not None:
+                same_bits(f"{case.name} library call", library(), plain())
+                lib_ms = graph_ms(library)
+            key = lowering_key(case, form)
+            timed[key] = (graph_ms(kernel), graph_ms(plain), lib_ms,
+                          *bound(nbytes, ops, peak), case.replaces)
+            ms, plain_ms, _, bms, by, _ = timed[key]
+            log(f"phase 6: {key} at {[list(t.shape) for t in ts]}: kernel "
+                f"{ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+                f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}, bound "
+                f"{bms:.3e} ms by {by} (CUDA graphs of "
+                f"{expand.GRAPH_CALLS} calls)")
+
+    mx = mxu_expand
+    x7, E7 = mx.p7_inputs()
+    p7 = {}
+    for mode in ("u8x4", "tf32"):
+        G7 = 512
+        xt, et = mx.mode_inputs(x7, E7, mode, "cuda")
+        (M, K), N = xt.shape, et.shape[1]
+        p7[mode] = {
+            "ms": cuda_ms(lambda: mx.onehot_mma(xt, et, mode, G7), reps=10,
+                          warmup=2),
+            # the float64 product warmed up, then the mean of 10 calls
+            "plain_ms": cuda_ms(lambda: mx.onehot_mma_ref(
+                xt.expand(G7, M, K), et, mode), reps=10, warmup=3),
+            "library_ms": cuda_ms(onehot_library(xt, et, mode, G7),
+                                  reps=10, warmup=2)}
+        log(f"phase 6: P7 onehot {mode} [{M},{K}]@[{K},{N}] x{G7}: kernel "
+            f"{p7[mode]['ms']:.4f} ms, plain {p7[mode]['plain_ms']:.4f} ms, "
+            f"library {p7[mode]['library_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    for counts in (lo.LAUNCHES, expand.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    ok, rates = lo.main([])
+    torch.cuda.synchronize()
+    launches = {**lo.LAUNCHES,
+                **{f"repeat_{f}": expand.LAUNCHES[f] for f in
+                   lo.CASES[0].forms}}
+    log(f"phase 6: the entry point launched {launches}")
+    if not ok:
+        fail("a lowering probe disagrees with the result its script checks "
+             "against, or a fori rate run with its plain version")
+    if not all(launches.values()):
+        fail(f"a lowering kernel was not launched by its entry point: "
+             f"{launches}")
+
+    entries = [{
+        "name": f"lowering_{k}", "route": "cuda",
+        "source": f"{CSRC}/expand.cu" if k.startswith("repeat")
+        else f"{CSRC}/lowering.cu",
+        "replaces": replaces, "launches": launches[k],
+        "max_abs_err": err[k], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        # int16, fori and alias take several PyTorch calls each
+        "library_ms": lib_ms}
+        for k, (ms, plain_ms, lib_ms, bound_ms, bound_by, replaces)
+        in timed.items()]
+    return entries, {"fori_rates": rates, "p7": p7}
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -780,9 +989,15 @@ def main() -> int:
     expansions = phase_expand()
     log(f"phase 5: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    lowerings, lowering_rates = phase_lowering(
+        roofline["lane_peak_ops_per_s"])
+    log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs time below: one block step at the main path's B={B}")
     log(json.dumps({"roofline": roofline}))
+    log(json.dumps({"lowering": lowering_rates}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -797,7 +1012,7 @@ def main() -> int:
         "bound_by": acs_bound_by,
         # no one PyTorch call computes a list-Viterbi block step
         "library_ms": None,
-    }, *probes, *expansions]}))
+    }, *probes, *expansions, *lowerings]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -161,3 +161,33 @@ def load_mxu_expand() -> ctypes.CDLL:
         lib.mxu_error_string.restype = ctypes.c_char_p
         _LIBS["mxu_expand"] = lib
     return _LIBS["mxu_expand"]
+
+
+def load_lowering() -> ctypes.CDLL:
+    """The lowering probe kernels (``csrc/lowering.cu``), built on first
+    call."""
+    if "lowering" not in _LIBS:
+        lib = ctypes.CDLL(str(build("lowering", ["lowering.cu"])))
+        p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        # x, idx, y, then P, C and the stream
+        lib.lowering_dynrow_launch.argtypes = [p, p, p, i, i, p]
+        # x, y, n and the stream (int16 and the reshape's copy)
+        for fn in (lib.lowering_int16_launch, lib.lowering_copy_launch):
+            fn.argtypes = [p, p, n, p]
+        # x, h, out, then placement, nq, ncol, rounds, copies, the threads
+        # per SM (0: one per item), the zero and the stream
+        lib.lowering_fori_launch.argtypes = (
+            [p, p, p] + [i] * 6 + [ctypes.c_float, p])
+        # placement, nq, and where the resident threads per SM go
+        lib.lowering_fori_resident.argtypes = [i, i,
+                                               ctypes.POINTER(ctypes.c_int)]
+        # stale, x, s, then P, W, row and the stream
+        lib.lowering_alias_launch.argtypes = [p, p, p, i, i, i, p]
+        for fn in (lib.lowering_dynrow_launch, lib.lowering_int16_launch,
+                   lib.lowering_copy_launch, lib.lowering_fori_launch,
+                   lib.lowering_fori_resident, lib.lowering_alias_launch):
+            fn.restype = i
+        lib.lowering_error_string.argtypes = [i]
+        lib.lowering_error_string.restype = ctypes.c_char_p
+        _LIBS["lowering"] = lib
+    return _LIBS["lowering"]

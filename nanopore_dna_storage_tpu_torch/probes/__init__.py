@@ -17,6 +17,11 @@ in ``scripts/``, with hand-written Hopper kernels.
   cores, in TF32, bf16 and an exact byte-plane int8 route
   (``scripts/tpu_mxu_expand_probe.py``, ``tpu_mxu_probe2.py``,
   ``tpu_mxu_probe3.py``; ``csrc/mxu_expand.cu``).
+* ``lowering``: the primitives the ACS kernel rests on (a row picked by an
+  index on the card, int16 stores, the argmax loop with its state in
+  registers or local memory, the candidate reshape, an in-place window
+  update), and the lane repeat through ``expand``
+  (``scripts/tpu_pallas_probe.py``; ``csrc/lowering.cu``).
 
 Each kernel has a plain PyTorch version beside it; CPU tensors take it,
 CUDA tensors launch the kernel.
@@ -25,4 +30,5 @@ CUDA tensors launch the kernel.
     python -m nanopore_dna_storage_tpu_torch.probes.treepop argmax halves
     python -m nanopore_dna_storage_tpu_torch.probes.expand p3 p4
     python -m nanopore_dna_storage_tpu_torch.probes.mxu_expand
+    python -m nanopore_dna_storage_tpu_torch.probes.lowering fori alias
 """
