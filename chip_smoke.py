@@ -7,15 +7,19 @@ Phases, each fatal on failure:
 
 0. setup: needs a CUDA device; builds every kernel library from
    ``nanopore_dna_storage_tpu_torch/csrc``, one nvcc per source, all at
-   once (each timed, with its ptxas registers, stack and spills);
-1. the kernel against its plain PyTorch version on the card, at the
-   headline decode config (experiment 7: m=11, r=5/6, msg_len 180, L=8,
-   max deviation 20) on one synthetic read: buffers and selections
-   bit-equal on blocks spread over the read (position 0 and an inactive
-   block included), then the whole read decoded both ways; then the same
-   at the main path's shapes: phase 3's first batch of reads through
+   once (each timed, with its ptxas registers, stack and spills); fails if
+   the ACS kernel's L = 8 build uses local memory (a stack frame or
+   spills);
+1. the ACS kernel (the K-way merge) against its plain PyTorch version on
+   the card, at the headline decode config (experiment 7: m=11, r=5/6,
+   msg_len 180, L=8, max deviation 20) on one synthetic read: buffers and
+   selections bit-equal on blocks spread over the read (position 0 and an
+   inactive block included), the buffers' rows sorted in slot (the K-way
+   merge's precondition), then the whole read decoded both ways; then the
+   same at the main path's shapes: phase 3's first batch of reads through
    ``PipelineDecoder.decode_posts``, split by orientation into launches
-   of several reads of different lengths, every block checked;
+   of several reads of different lengths, every block checked; and the
+   kernel's L <= 16 bucket at L = 12 on a few blocks of the first read;
 2. every golden vector of ``tests/golden/decode`` through the kernel,
    bit-identical to the reference binary's lists;
 3. the main path: ``sim-decode`` at experiment 7 on a 100-byte file, which
@@ -25,8 +29,9 @@ Phases, each fatal on failure:
    ``probes/treepop.py``): merge and stream bit-equal to their plain
    versions at [64, 8, 512] with 256 copies and 8 rounds, every copy's
    slot equal; each tree-pop variant and the guarded tree bit-equal; each
-   kernel and plain version timed; then the probes' entry points, whose
-   merge rate gives the ACS kernel (phase 1, one read) its roofline share;
+   kernel and plain version timed; then the probes' entry points; the
+   roofline line sets their rates beside the ACS kernel's (phase 1, one
+   read) in the operations it needs;
 5. the expansion-family probes (``probes/expand.py``,
    ``probes/mxu_expand.py``): every lane-map form (gather, shfl,
    butterfly), the transpose and every one-hot product mode (tf32, bf16,
@@ -51,14 +56,17 @@ Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
 card's peak for their type (``bound``).
 
-Before the last lines come ``{"roofline": {...}}``, ``{"lowering":
-{...}}`` (the fori rates and P7's times), the card's name and power limit,
-and ``{"kernels": [...]}``; the last is
+Before the last lines come ``{"lva_acs": {...}}`` (the ACS kernel's
+times at B=1 and B=4, its registers, local bytes and resident threads
+per SM, its bound and its share of it), ``{"roofline": {...}}``,
+``{"lowering": {...}}`` (the fori rates and P7's times), the card's name
+and power limit, and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -157,10 +165,19 @@ def same_bufs(got, want) -> float:
     return err
 
 
+def check_sorted(bufs, what: str) -> None:
+    """Fails unless every (read, position, CRF state, conv state) row of the
+    buffer triple ``bufs`` has scores that do not increase with the slot:
+    the K-way merge's precondition."""
+    sc = bufs[0]
+    if not bool((sc[:, :, :, 1:] <= sc[:, :, :, :-1]).all()):
+        fail(f"{what}: a buffer row's scores increase with the slot")
+
+
 def phase_kernel(dec, post):
     """Phase 1: kernel vs plain version on one read, decoder ``dec``.
     Returns the kernel's and the plain version's ms at the timed block, the
-    max |score error|, and the timed block's window start (padded row)."""
+    max |score error| and the timed block's window start (padded row)."""
     spec, tabs, dev = dec.spec, dec.tabs, dec.device
     T = post.shape[0]
     L, C, W = spec.list_size, spec.code.nstate_conv, spec.window
@@ -184,6 +201,7 @@ def phase_kernel(dec, post):
                              device=dev),
                 torch.ones(1, dtype=torch.bool, device=dev))
         if t in check:
+            check_sorted(prev, f"block {t} prev")
             st_ref = [x.clone() for x in stale]
             sel_ref = torch.empty_like(sel)
             lva_acs.acs_block_ref(tabs, prev, st_ref, *args, sel_ref)
@@ -197,6 +215,7 @@ def phase_kernel(dec, post):
                 tabs, prev, scratch, *args, sel), reps=3)
         lva_acs.acs_block(tabs, prev, stale, *args, sel)
         if t in check:
+            check_sorted(stale, f"block {t} output")
             err = max(err, same_bufs(stale, st_ref))
             if not torch.equal(sel, sel_ref):
                 fail(f"kernel selections differ at block {t}")
@@ -218,9 +237,9 @@ def phase_kernel(dec, post):
     if not (torch.equal(sel, sel_ref) and bool((sel == -1).all())):
         fail("inactive block selected something")
     torch.cuda.synchronize()
-    log(f"phase 1: {len(check)} active blocks + 1 inactive bit-equal "
-        f"({written} selections written); block {timed_block}: kernel "
-        f"{ms:.4f} ms/block, acs_block_ref {plain_ms:.4f} ms/block")
+    log(f"phase 1: {len(check)} active blocks + 1 inactive bit-equal, "
+        f"rows sorted ({written} selections written); block {timed_block}: "
+        f"kernel {ms:.4f} ms/block, acs_block_ref {plain_ms:.4f} ms/block")
 
     out = {}
     for name, acs in (("kernel", lva_acs.acs_block),
@@ -245,29 +264,42 @@ def phase_kernel(dec, post):
 class CheckedACS:
     """An ACS step that runs ``acs_block_ref`` on a copy of the stale
     buffers, then the kernel on the buffers themselves, and fails unless
-    the two agree bit for bit; times both once, at block ``timed``."""
+    the two agree bit for bit and the rows of both buffers are sorted, at
+    every block whose index ``check`` accepts (the kernel alone at the
+    others); at block ``timed`` it also times both and counts the bytes the
+    step must move (``acs_needed_bytes``)."""
 
-    def __init__(self, timed: int):
-        self.timed = timed
-        self.blocks = self.mixed = 0
+    def __init__(self, timed: int, check=lambda t: True):
+        self.timed, self.check = timed, check
+        self.blocks = self.checked = self.mixed = 0
         self.err = 0.0
-        self.ms = self.plain_ms = self.timed_B = None
+        self.ms = self.plain_ms = self.timed_B = self.needed_bytes = None
         self.timed_args = None  # (start1, active) of the timed block
 
     def __call__(self, tabs, prev, stale, *args):
         *rest, sel = args
+        if not self.check(self.blocks):
+            lva_acs.acs_block(tabs, prev, stale, *args)
+            self.blocks += 1
+            return sel
+        check_sorted(prev, f"batch block {self.blocks} prev")
+        st_ref = [x.clone() for x in stale]
+        sel_ref = torch.empty_like(sel)
+        lva_acs.acs_block_ref(tabs, prev, st_ref, *rest, sel_ref)
         if self.blocks == self.timed:
             self.timed_B = sel.shape[0]
             self.timed_args = (rest[2].tolist(), rest[3].tolist())
+            self.needed_bytes = merge_roofline.acs_needed_bytes(
+                tabs, prev[0], st_ref[0], sel_ref, *rest)
+            # both steps only read prev and rewrite the same stale cells,
+            # so repeating them leaves the state as one call would
             scratch = [x.clone() for x in stale]
             self.ms = cuda_ms(lambda: lva_acs.acs_block(
                 tabs, prev, scratch, *args), reps=20, warmup=3)
             self.plain_ms = cuda_ms(lambda: lva_acs.acs_block_ref(
                 tabs, prev, scratch, *args), reps=3)
-        st_ref = [x.clone() for x in stale]
-        sel_ref = torch.empty_like(sel)
-        lva_acs.acs_block_ref(tabs, prev, st_ref, *rest, sel_ref)
         lva_acs.acs_block(tabs, prev, stale, *args)
+        check_sorted(stale, f"batch block {self.blocks} output")
         self.err = max(self.err, same_bufs(stale, st_ref))
         if not torch.equal(sel, sel_ref):
             fail(f"kernel selections differ at batch block {self.blocks}")
@@ -275,7 +307,26 @@ class CheckedACS:
         if 0 < int(active.sum()) < active.numel():
             self.mixed += 1
         self.blocks += 1
+        self.checked += 1
         return sel
+
+
+def phase_bucket16(headline, post):
+    """Phase 1, last part: the kernel's L <= 16 bucket (int8 selections,
+    emitted pairs in local memory), which no golden reaches, at L = 12 on
+    one read: blocks at position 0, spread over the read and at its end
+    held bit-equal to ``acs_block_ref``."""
+    dec = LVADecoder(dataclasses.replace(headline, list_size=12),
+                     device="cuda")
+    T = post.shape[0]
+    blocks = {0, 1, T // 4, T // 2, 3 * T // 4, T - 1}
+    check = CheckedACS(timed=-1, check=blocks.__contains__)
+    _, _, valid = dec.decode(post[None], acs=check)
+    if check.checked != len(blocks) or not valid[0, 0]:
+        fail(f"L = 12: {check.checked} of {len(blocks)} blocks checked, "
+             f"top entry valid: {bool(valid[0, 0])}")
+    log(f"phase 1: L = 12: blocks {sorted(blocks)} of {T} bit-equal, rows "
+        f"sorted; {int(valid.sum())} valid entries")
 
 
 def phase_batch(enc, exp, device):
@@ -285,7 +336,8 @@ def phase_batch(enc, exp, device):
     orientation, so each launch holds several reads of different lengths,
     each with its own beam start, some of them past their end. Every block
     of both decodes is checked. Returns (B, kernel ms, plain ms) of the
-    timed block, and the max |score error|."""
+    timed block, its (start1, active), the bytes its step must move, and
+    the max |score error|."""
     posts, rcs, _ = simulate_posts(enc.oligos, 8,
                                    np.random.default_rng(SEED))
     for flag in (False, True):
@@ -295,36 +347,57 @@ def phase_batch(enc, exp, device):
     t0 = time.perf_counter()
     out = PipelineDecoder(exp, 8, 20, device=device).decode_posts(
         posts, rcs, enc.num_oligos_data + enc.num_oligos_rs, acs=check)
-    log(f"phase 1b: {check.blocks} blocks bit-equal, {check.mixed} of them "
-        f"with active and inactive reads ({time.perf_counter() - t0:.1f} s); "
-        f"{int((out.index >= 0).sum())} of {len(posts)} reads pass CRC; "
-        f"block {check.timed} at B={check.timed_B}: kernel "
-        f"{check.ms:.4f} ms/block, acs_block_ref {check.plain_ms:.4f} "
-        f"ms/block")
+    log(f"phase 1b: {check.blocks} blocks bit-equal, rows sorted, "
+        f"{check.mixed} of them with active and inactive reads "
+        f"({time.perf_counter() - t0:.1f} s); {int((out.index >= 0).sum())} "
+        f"of {len(posts)} reads pass CRC; block {check.timed} at "
+        f"B={check.timed_B}: kernel {check.ms:.4f} ms/block, acs_block_ref "
+        f"{check.plain_ms:.4f} ms/block")
     if check.mixed == 0:
         fail("no checked block mixed active and inactive reads")
     return (check.timed_B, check.ms, check.plain_ms), check.timed_args, \
-        check.err
+        check.needed_bytes, check.err
 
 
-def acs_bound(dec, start1, active):
-    """(bound_ms, bound_by, executed ops, bytes) of one ACS block step
-    whose reads have window starts ``start1`` and flags ``active``: the ops
-    the kernel executes (``acs_executed_ops``, valid states and real merge
-    rows of each active read) over the FP32 lane peak, against the bytes
-    it must move: per active read the W + 1 rows of the three previous
-    buffers (scores, two hashes) it reads and the W rows it writes, and
-    the int8 selections of every read."""
+def acs_bound(dec, start1, active, nbytes: int) -> dict:
+    """The bound of one ACS block step whose reads have window starts
+    ``start1`` and flags ``active``: the ``nbytes`` it must move on its
+    inputs (``acs_needed_bytes``) over the memory rate, against its
+    operations over the FP32 lane peak, counted over the valid states and
+    real merge rows of each active read as the K-way merge needs them
+    (``acs_needed_ops``). Beside it, for reference, two counts that do not
+    depend on the data: every slot of the W + 1 previous rows read and the
+    W rows written (``bytes_every_slot``), and the operations of a flat
+    scan over every candidate (``acs_executed_ops``)."""
     spec, tabs = dec.spec, dec.tabs
     L, C, W = spec.list_size, spec.code.nstate_conv, spec.window
     rows = (1 + (tabs["qmap"][:, 1:] >= 0).sum(1)).tolist()
-    ops = sum(merge_roofline.acs_executed_ops(
-        spec, rows, tabs["valid"][s:s + W] != 0)
-        for s, a in zip(start1, active) if a)
+    windows = [tabs["valid"][s:s + W] != 0
+               for s, a in zip(start1, active) if a]
+    needed = sum(merge_roofline.acs_needed_ops(spec, rows, v)
+                 for v in windows)
+    flat = sum(merge_roofline.acs_executed_ops(spec, rows, v)
+               for v in windows)
     cells = 8 * L * C
-    nbytes = sum(active) * (2 * W + 1) * cells * 12 + len(start1) * W * cells
+    every = sum(active) * (2 * W + 1) * cells * 12 + len(start1) * W * cells
     peak, _ = merge_roofline.lane_peak()
-    return (*bound(nbytes, ops, peak), ops, nbytes)
+    bound_ms, bound_by = bound(nbytes, needed, peak)
+    return {"bytes": nbytes, "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "needed_ops": needed, "needed_ops_ms": 1e3 * needed / peak,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_every_slot": every,
+            "bytes_every_slot_ms": 1e3 * every / HBM_BYTES_PER_S,
+            "flat_ops": flat, "flat_ops_ms": 1e3 * flat / peak}
+
+
+def acs_resources() -> dict:
+    """The ACS kernel's L = 8 build on the card: registers, local bytes
+    (stack frame and spills) and resident threads per SM. Fails if it uses
+    local memory."""
+    info = lva_acs.kernel_info(8)
+    if info["local_bytes"]:
+        fail(f"the ACS kernel at L = 8 uses local memory: {info}")
+    return info
 
 
 def phase_goldens(device):
@@ -443,7 +516,8 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
     entry points as a user runs them, with the launch counts set to 0 just
     before and read just after. ``acs_ms`` is phase 1's ACS block step at
     B=1 through decoder ``dec``, its window starting at padded row
-    ``acs_start1``. Returns the kernels' JSON entries and the roofline."""
+    ``acs_start1``: K1's rate in the probes' unit, in the ops the K-way
+    merge needs. Returns the kernels' JSON entries and the roofline."""
     nc, f, ct = merge_roofline.NC, merge_roofline.F, merge_roofline.CT
     G, R = 256, 8
     rng = np.random.default_rng(SEED)
@@ -513,13 +587,13 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
 
     peak, formula = merge_roofline.lane_peak()
     spec, tabs = dec.spec, dec.tabs
-    work = merge_roofline.acs_work_ops(spec, 1)
-    acs_rate = work / (acs_ms / 1e3)
-    # what the kernel executes of it: valid states only, real merge rows
+    # K1's work three ways: bench.py's count with flop rows padded to 8,
+    # what a flat scan executes over valid states and real merge rows, and
+    # what the K-way merge needs; only the last is a rate of this kernel
     valid = tabs["valid"][acs_start1:acs_start1 + spec.window] != 0
     rows = (1 + (tabs["qmap"][:, 1:] >= 0).sum(1)).tolist()
-    executed = merge_roofline.acs_executed_ops(spec, rows, valid)
-    exec_rate = executed / (acs_ms / 1e3)
+    needed = merge_roofline.acs_needed_ops(spec, rows, valid)
+    need_rate = needed / (acs_ms / 1e3)
     rate = {k: roof[k]["ops_per_s_T"] * 1e12 for k in ("merge", "stream")}
     roofline = {
         "lane_peak_ops_per_s": peak,
@@ -529,17 +603,14 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
         "stream_ops_per_s": rate["stream"],
         "stream_share_of_lane_peak": rate["stream"] / peak,
         "acs_ms_per_block_step": acs_ms,
-        "acs_work_ops_per_block_step": work,
-        "acs_ops_per_s": acs_rate,
-        "acs_share_of_merge_ceiling": acs_rate / rate["merge"],
-        "acs_share_of_stream": acs_rate / rate["stream"],
-        "acs_share_of_lane_peak": acs_rate / peak,
         "acs_valid_share_of_window": float(valid.float().mean()),
         "acs_merge_rows_per_crf_state": rows,
-        "acs_executed_ops_per_block_step": executed,
-        "acs_executed_ops_per_s": exec_rate,
-        "acs_executed_share_of_merge_ceiling": exec_rate / rate["merge"],
-        "acs_executed_share_of_lane_peak": exec_rate / peak,
+        "acs_work_ops_per_block_step": merge_roofline.acs_work_ops(spec, 1),
+        "acs_flat_ops_per_block_step": merge_roofline.acs_executed_ops(
+            spec, rows, valid),
+        "acs_needed_ops_per_block_step": needed,
+        "acs_needed_ops_per_s": need_rate,
+        "acs_needed_share_of_lane_peak": need_rate / peak,
     }
     replaces = {"merge": "scripts/tpu_vpu_roofline.py:48",
                 "stream": "scripts/tpu_vpu_roofline.py:68",
@@ -944,6 +1015,8 @@ def main() -> int:
     log(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     build_kernels()
+    resources = acs_resources()
+    log(f"phase 0: ACS kernel at L = 8: {json.dumps(resources)}")
 
     data = np.random.default_rng(SEED).integers(
         0, 256, 100, dtype=np.uint8).tobytes()
@@ -958,15 +1031,19 @@ def main() -> int:
     t0 = time.perf_counter()
     dec = LVADecoder(headline, device="cuda")
     acs_ms, _, err, acs_start1 = phase_kernel(dec, posts[0])
+    phase_bucket16(headline, posts[0])
     log(f"phase 1: done in {time.perf_counter() - t0:.1f} s")
-    (B, ms, plain_ms), (start1, active), err_b = phase_batch(enc, exp,
-                                                            "cuda")
-    acs_bound_ms, acs_bound_by, acs_ops, acs_bytes = acs_bound(dec, start1,
-                                                               active)
-    log(f"lva_acs bound at B={B}: {acs_ops} executed ops over the lane "
-        f"peak, {acs_bytes} bytes: {acs_bound_ms:.4f} ms, by "
-        f"{acs_bound_by}")
+    (B, ms, plain_ms), (start1, active), nbytes, err_b = phase_batch(
+        enc, exp, "cuda")
+    acs = acs_bound(dec, start1, active, nbytes)
+    log(f"lva_acs bound at B={B}: {acs['needed_ops']} needed ops over the "
+        f"lane peak, {nbytes} bytes needed ({acs['bytes_every_slot']} "
+        f"with every slot): {acs['bound_ms']:.4f} ms, by {acs['bound_by']}")
     err = max(err, err_b)
+    lva_line = {
+        "gpu": gpu, "ms_B1": acs_ms, f"ms_B{B}": ms, "L8": resources,
+        f"bound_B{B}": acs, "share_of_bound": acs["bound_ms"] / ms,
+        "share_of_bytes_every_slot": acs["bytes_every_slot_ms"] / ms}
 
     t0 = time.perf_counter()
     n = phase_goldens("cuda")
@@ -996,6 +1073,7 @@ def main() -> int:
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs time below: one block step at the main path's B={B}")
+    log(json.dumps({"lva_acs": lva_line}))
     log(json.dumps({"roofline": roofline}))
     log(json.dumps({"lowering": lowering_rates}))
     log(f"gpu: {gpu}")
@@ -1008,8 +1086,8 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": acs_bound_ms,
-        "bound_by": acs_bound_by,
+        "bound_ms": acs["bound_ms"],
+        "bound_by": acs["bound_by"],
         # no one PyTorch call computes a list-Viterbi block step
         "library_ms": None,
     }, *probes, *expansions, *lowerings]}))

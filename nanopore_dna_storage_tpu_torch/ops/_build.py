@@ -103,6 +103,9 @@ def load_lva_acs() -> ctypes.CDLL:
         # tables), then B, P, L, C, W and the CUDA stream
         lib.lva_acs_launch.argtypes = [p] * 16 + [i] * 5 + [p]
         lib.lva_acs_launch.restype = i
+        # L, and where registers, local bytes and threads per SM go
+        lib.lva_acs_info.argtypes = [i, ctypes.POINTER(i)]
+        lib.lva_acs_info.restype = i
         lib.lva_acs_error_string.argtypes = [i]
         lib.lva_acs_error_string.restype = ctypes.c_char_p
         _LIBS["lva_acs"] = lib

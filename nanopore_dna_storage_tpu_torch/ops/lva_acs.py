@@ -3,8 +3,9 @@
 Counterpart of ``nanopore_dna_storage_tpu/ops/lva_pallas.py`` ``acs_block``
 and ``_make_kernel`` (the Pallas kernel at ``lva_pallas.py:929``), batched
 over reads and in natural conv indexing. ``acs_block`` launches the CUDA
-kernel of ``csrc/lva_acs.cu`` on CUDA tensors and runs ``acs_block_ref``,
-the same function in plain PyTorch, on CPU tensors.
+kernel of ``csrc/lva_acs.cu`` (a K-way merge of the sorted candidate rows)
+on CUDA tensors and runs ``acs_block_ref``, the same function in plain
+PyTorch, on CPU tensors.
 
 Semantics, for every read b, window row w (padded position
 ``pos = start1[b] + w``), CRF destination f and conv state s:
@@ -27,6 +28,7 @@ Semantics, for every read b, window row w (padded position
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -147,6 +149,10 @@ def acs_block(tabs: Dict[str, torch.Tensor], prev: Buffers, stale: Buffers,
     Args:
       tabs: ``LVAConsts.to(device)`` tables.
       prev: (score f32, h1 i32, h2 i32) buffers, each [B, P, 8, L, C].
+        Precondition: in every (read, position, CRF state, conv state) row,
+        scores do not increase with the slot. The kernel merges the rows as
+        sorted lists and relies on it; every buffer the decoder makes holds
+        it (initial buffers, position 0, merge outputs).
       stale: buffers of the same shape; updated in place.
       stay_tr: f32 [B, 8]; move_tr: f32 [B, 8, 8] (this block's posts).
       start1: int32 [B], padded row of window row 0; the caller guarantees
@@ -199,3 +205,17 @@ def acs_block(tabs: Dict[str, torch.Tensor], prev: Buffers, stale: Buffers,
                            + lib.lva_acs_error_string(err).decode())
     LAUNCHES += 1
     return sel
+
+
+def kernel_info(L: int) -> Dict[str, int]:
+    """Registers, local memory in bytes (stack frame and spills) and
+    resident threads per SM (the occupancy calculator, blocks of 128) of
+    the kernel that runs list size ``L`` on the current CUDA device."""
+    lib = load_lva_acs()
+    out = (ctypes.c_int * 3)()
+    err = lib.lva_acs_info(L, out)
+    if err != 0:
+        raise RuntimeError("lva_acs_info failed: "
+                           + lib.lva_acs_error_string(err).decode())
+    return {"registers": out[0], "local_bytes": out[1],
+            "threads_per_sm": out[2]}

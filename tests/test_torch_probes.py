@@ -199,6 +199,30 @@ def test_acs_executed_ops_hand_count():
         spec.window * 64 * pad == mr.acs_work_ops(spec, 1)
 
 
+def test_acs_needed_ops_hand_count():
+    spec, _ = DecodeSpec.build(DecodeConfig(
+        code=ConvCodeConfig(mem=6, rate=1, msg_len=30), list_size=2,
+        max_deviation=6))
+    valid = torch.zeros((spec.window, 64), dtype=torch.bool)
+    valid[:3, :10] = True
+    rows = [8] * 4 + [2] * 4
+    # flip states, n = 8 rows at L = 2: argmax 3 x 8 x 2, pair checks
+    # 3 x 1, score adds 8 + 1, first move heads' hashes 22 x 7, outputs 8
+    flip = 48 + 3 + 9 + 154 + 8
+    flop = 12 + 3 + 3 + 22 + 8  # n = 2
+    assert mr.acs_needed_ops(spec, rows, valid) == 30 * (4 * flip
+                                                        + 4 * flop)
+    # the headline config: about a fourteenth of the flat scan's count
+    big = DecodeSpec.build(DecodeConfig(
+        code=ConvCodeConfig(mem=11, rate=5, msg_len=180), list_size=8,
+        max_deviation=20))[0]
+    ones = torch.ones((big.window, 2048), dtype=torch.bool)
+    need = mr.acs_needed_ops(big, rows, ones)
+    assert need == big.window * 2048 * (4 * (192 + 84 + 15 + 154 + 32)
+                                        + 4 * (48 + 84 + 9 + 22 + 32))
+    assert 13 < mr.acs_executed_ops(big, rows, ones) / need < 15
+
+
 @pytest.mark.parametrize("kind", ["merge", "stream", "treepop"])
 def test_cpu_tensors_take_the_plain_path(kind):
     x, h1, h2 = map(torch.from_numpy, _merge_inputs("different"))
