@@ -8,8 +8,9 @@ Phases, each fatal on failure:
 0. setup: needs a CUDA device; builds every kernel library from
    ``nanopore_dna_storage_tpu_torch/csrc``, one nvcc per source, all at
    once (each timed, with its ptxas registers, stack and spills); fails if
-   the ACS kernel's L = 8 build uses local memory (a stack frame or
-   spills);
+   the K-way ACS kernel's L = 8 build uses local memory (a stack frame or
+   spills); logs the logsumexp kernel's registers, local bytes and
+   threads per SM (its candidates live in local memory by design);
 1. the ACS kernel (the K-way merge) against its plain PyTorch version on
    the card, at the headline decode config (experiment 7: m=11, r=5/6,
    msg_len 180, L=8, max deviation 20) on one synthetic read: buffers and
@@ -20,8 +21,9 @@ Phases, each fatal on failure:
    ``PipelineDecoder.decode_posts``, split by orientation into launches
    of several reads of different lengths, every block checked; and the
    kernel's L <= 16 bucket at L = 12 on a few blocks of the first read;
-2. every golden vector of ``tests/golden/decode`` through the kernel,
-   bit-identical to the reference binary's lists;
+2. every golden vector of ``tests/golden/decode``, ``tests/golden/sync``
+   (sync markers) and ``tests/golden/decode14`` (m=14, C = 16384) through
+   the kernel, bit-identical to the reference binary's lists, each timed;
 3. the main path: ``sim-decode`` at experiment 7 on a 100-byte file, which
    must recover the file byte for byte, with one kernel launch per forward
    block step;
@@ -50,7 +52,16 @@ Phases, each fatal on failure:
    plain version and library call timed; P7's plain version and library
    call at its shape; then the entry point, with its launch counts set to
    0 before, which also gives the fori rates (both placements at both NQ,
-   and ``local`` at ``regs``'s residency).
+   and ``local`` at ``regs``'s residency);
+7. logsumexp path combining through its flat-merge kernel
+   (``acs_block_lse``, ``csrc/lva_lse.cu``) at the headline config: the
+   kernel bit-equal to its plain version on one read at B=1 (blocks over
+   the read, position 0 and an inactive block, then the whole read's lists,
+   scores and validity), at L = 12 on a few blocks, and on every 16th block
+   of phase 3's first batch at B=4, one block timed there; then phase 3's
+   32 reads through ``PipelineDecoder(..., path_combine="logsumexp")``,
+   which must recover the file byte for byte with one lse launch per block
+   step and no K-way launch.
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
@@ -58,7 +69,9 @@ card's peak for their type (``bound``).
 
 Before the last lines come ``{"lva_acs": {...}}`` (the ACS kernel's
 times at B=1 and B=4, its registers, local bytes and resident threads
-per SM, its bound and its share of it), ``{"roofline": {...}}``,
+per SM, its bound and its share of it), ``{"lva_acs_lse": {...}}`` (the
+same for the logsumexp kernel, its bound's three terms and the lse path's
+s/read), ``{"roofline": {...}}``,
 ``{"lowering": {...}}`` (the fori rates and P7's times), the card's name
 and power limit, and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
@@ -87,8 +100,8 @@ try:
     from nanopore_dna_storage_tpu_torch.ops.lva_consts import sel_format
     from nanopore_dna_storage_tpu_torch.pipeline import (encode_bytes,
                                                          experiment)
-    from nanopore_dna_storage_tpu_torch.pipeline.decode import \
-        PipelineDecoder
+    from nanopore_dna_storage_tpu_torch.pipeline.decode import (
+        PipelineDecoder, majority_vote, recover_file)
     from nanopore_dna_storage_tpu_torch.pipeline.simulate import \
         simulate_posts
     from nanopore_dna_storage_tpu_torch.probes import (expand, lowering,
@@ -99,12 +112,18 @@ except ImportError as e:
              f"script: {e}")
 
 ROOT = pathlib.Path(__file__).resolve().parent
-GOLDEN = ROOT / "tests" / "golden" / "decode"
+GOLDEN = ROOT / "tests" / "golden"
+# the reference binary's golden lists: plain, with sync markers, and m=14
+GOLDEN_SETS = ("decode", "sync", "decode14")
 SEED = 0
+LSE = "logsumexp"
+# phase 7c checks every 16th block against the plain version, which at
+# full width takes ~0.1-0.3 s a block step
+LSE_CHECK_EVERY = 16
 # every kernel library and its sources in csrc/
-LIBS = {"lva_acs": ["lva_acs.cu"], "probes": ["probes.cu"],
-        "expand": ["expand.cu"], "mxu_expand": ["mxu_expand.cu"],
-        "lowering": ["lowering.cu"]}
+LIBS = {"lva_acs": ["lva_acs.cu"], "lva_lse": ["lva_lse.cu"],
+        "probes": ["probes.cu"], "expand": ["expand.cu"],
+        "mxu_expand": ["mxu_expand.cu"], "lowering": ["lowering.cu"]}
 CSRC = "nanopore_dna_storage_tpu_torch/csrc"
 PROBE_SOURCE = f"{CSRC}/probes.cu"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): device
@@ -112,6 +131,9 @@ PROBE_SOURCE = f"{CSRC}/probes.cu"
 # (2 per MAC) per second by operand type; u8x4 runs on the int8 rate
 HBM_BYTES_PER_S = 3.35e12
 TC_OPS_PER_S = {"tf32": 495e12, "bf16": 989e12, "u8x4": 1979e12}
+# special function units of one Hopper SM: transcendental results per clock
+# (exp, log), against its 128 FP32 lanes
+SFU_PER_SM = 16
 # the script kernel each one-hot mode stands in for (f32 DEFAULT, bf16,
 # HIGHEST)
 REPLACES_MXU = {"tf32": "scripts/tpu_mxu_probe2.py:33",
@@ -151,18 +173,32 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def same_bufs(got, want) -> float:
-    """Fails unless scores, hashes and -inf positions are bit-equal;
+    """Fails unless scores, hashes and -inf positions are bit-equal (the
+    message gives the largest score difference in units in the last place);
     returns the max |score difference| over finite scores."""
     fin = torch.isfinite(want[0])
     if not torch.equal(torch.isfinite(got[0]), fin):
-        fail("kernel and acs_block_ref disagree on which scores are -inf")
+        fail("kernel and its plain version disagree on which scores are "
+             "-inf")
     err = float((got[0][fin] - want[0][fin]).abs().max()) \
         if bool(fin.any()) else 0.0
     for x, y in zip(got, want):
         if not torch.equal(x, y):
-            fail(f"kernel buffers differ from acs_block_ref (score error "
-                 f"{err})")
+            ulps = int((got[0][fin].view(torch.int32).long()
+                        - want[0][fin].view(torch.int32).long()).abs().max()) \
+                if bool(fin.any()) else 0
+            fail(f"kernel buffers differ from the plain version (score error "
+                 f"{err}, {ulps} ulp)")
     return err
+
+
+def acs_steps(lse: bool):
+    """(kernel, plain version) of the ACS step: the K-way merge under max
+    combining, whose buffer rows stay sorted in slot, or the flat merge
+    under logsumexp combining (``lse``), whose rows do not."""
+    if lse:
+        return lva_acs.acs_block_lse, lva_acs.acs_block_lse_ref
+    return lva_acs.acs_block, lva_acs.acs_block_ref
 
 
 def check_sorted(bufs, what: str) -> None:
@@ -174,15 +210,20 @@ def check_sorted(bufs, what: str) -> None:
         fail(f"{what}: a buffer row's scores increase with the slot")
 
 
-def phase_kernel(dec, post):
-    """Phase 1: kernel vs plain version on one read, decoder ``dec``.
-    Returns the kernel's and the plain version's ms at the timed block, the
-    max |score error| and the timed block's window start (padded row)."""
+def phase_kernel(dec, post, tag="phase 1"):
+    """Phase 1 (and 7a under logsumexp combining): the ACS kernel of
+    decoder ``dec`` against its plain version on one read; under max
+    combining the rows are also held sorted. Returns the kernel's and the
+    plain version's ms at the timed block, the max |score error| and the
+    timed block's window start (padded row)."""
     spec, tabs, dev = dec.spec, dec.tabs, dec.device
+    kern, ref = acs_steps(spec.combine_lse)
+    sorted_rows = not spec.combine_lse
     T = post.shape[0]
     L, C, W = spec.list_size, spec.code.nstate_conv, spec.window
-    log(f"phase 1: m={spec.code.mem} L={L}: C={C} W={W} "
-        f"P={spec.npos_pad} T={T} rc={spec.code.config.rc}")
+    log(f"{tag}: m={spec.code.mem} L={L}: C={C} W={W} "
+        f"P={spec.npos_pad} T={T} rc={spec.code.config.rc} "
+        f"{'logsumexp' if spec.combine_lse else 'max'} combining")
     starts = dec.schedule(np.array([T]), T)[0]
     postf = torch.from_numpy(post.reshape(1, T, 40)).to(dev)
     stay = postf[:, :, tabs["stay_idx"]]
@@ -201,21 +242,23 @@ def phase_kernel(dec, post):
                              device=dev),
                 torch.ones(1, dtype=torch.bool, device=dev))
         if t in check:
-            check_sorted(prev, f"block {t} prev")
+            if sorted_rows:
+                check_sorted(prev, f"block {t} prev")
             st_ref = [x.clone() for x in stale]
             sel_ref = torch.empty_like(sel)
-            lva_acs.acs_block_ref(tabs, prev, st_ref, *args, sel_ref)
+            ref(tabs, prev, st_ref, *args, sel_ref)
         if t == timed_block:
             # both steps only read prev and rewrite the same stale cells,
             # so repeating them leaves the state as one call would
             scratch = [x.clone() for x in stale]
-            ms = cuda_ms(lambda: lva_acs.acs_block(
-                tabs, prev, scratch, *args, sel), reps=20, warmup=3)
-            plain_ms = cuda_ms(lambda: lva_acs.acs_block_ref(
-                tabs, prev, scratch, *args, sel), reps=3)
-        lva_acs.acs_block(tabs, prev, stale, *args, sel)
+            ms = cuda_ms(lambda: kern(tabs, prev, scratch, *args, sel),
+                         reps=20, warmup=3)
+            plain_ms = cuda_ms(lambda: ref(tabs, prev, scratch, *args, sel),
+                               reps=3)
+        kern(tabs, prev, stale, *args, sel)
         if t in check:
-            check_sorted(stale, f"block {t} output")
+            if sorted_rows:
+                check_sorted(stale, f"block {t} output")
             err = max(err, same_bufs(stale, st_ref))
             if not torch.equal(sel, sel_ref):
                 fail(f"kernel selections differ at block {t}")
@@ -230,133 +273,152 @@ def phase_kernel(dec, post):
     before = [x.clone() for x in stale]
     st_ref = [x.clone() for x in stale]
     sel_ref = torch.empty_like(sel)
-    lva_acs.acs_block_ref(tabs, prev, st_ref, *args, sel_ref)
-    lva_acs.acs_block(tabs, prev, stale, *args, sel)
+    ref(tabs, prev, st_ref, *args, sel_ref)
+    kern(tabs, prev, stale, *args, sel)
     same_bufs(stale, st_ref)
     same_bufs(stale, before)
     if not (torch.equal(sel, sel_ref) and bool((sel == -1).all())):
         fail("inactive block selected something")
     torch.cuda.synchronize()
-    log(f"phase 1: {len(check)} active blocks + 1 inactive bit-equal, "
-        f"rows sorted ({written} selections written); block {timed_block}: "
-        f"kernel {ms:.4f} ms/block, acs_block_ref {plain_ms:.4f} ms/block")
+    log(f"{tag}: {len(check)} active blocks + 1 inactive bit-equal"
+        f"{', rows sorted' if sorted_rows else ''} ({written} selections "
+        f"written); block {timed_block}: kernel {ms:.4f} ms/block, plain "
+        f"{plain_ms:.4f} ms/block")
 
     out = {}
-    for name, acs in (("kernel", lva_acs.acs_block),
-                      ("acs_block_ref", lva_acs.acs_block_ref)):
+    for name, acs in (("kernel", kern), ("plain version", ref)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out[name] = dec.decode(post[None], acs=acs)
         torch.cuda.synchronize()
-        log(f"phase 1: whole read via {name}: "
+        log(f"{tag}: whole read via the {name}: "
             f"{time.perf_counter() - t0:.3f} s/read")
-    (mk, sk, vk), (mr, sr, vr) = out["kernel"], out["acs_block_ref"]
+    (mk, sk, vk), (mr, sr, vr) = out["kernel"], out["plain version"]
     if not (np.array_equal(mk, mr) and np.array_equal(sk, sr)
             and np.array_equal(vk, vr)):
-        fail("kernel and acs_block_ref decode different lists")
+        fail("kernel and plain version decode different lists")
     if not vk[0, 0]:
         fail("headline read decoded to an empty list")
-    log(f"phase 1: lists identical; {int(vk.sum())} valid entries, "
+    log(f"{tag}: lists identical; {int(vk.sum())} valid entries, "
         f"top score {sk[0, 0]:.4f}")
     return ms, plain_ms, err, int(starts[timed_block]) + 1
 
 
 class CheckedACS:
-    """An ACS step that runs ``acs_block_ref`` on a copy of the stale
+    """An ACS step that runs the plain version on a copy of the stale
     buffers, then the kernel on the buffers themselves, and fails unless
-    the two agree bit for bit and the rows of both buffers are sorted, at
-    every block whose index ``check`` accepts (the kernel alone at the
-    others); at block ``timed`` it also times both and counts the bytes the
-    step must move (``acs_needed_bytes``)."""
+    the two agree bit for bit (and, under max combining, the rows of both
+    buffers are sorted), at every block whose index ``check`` accepts and
+    at the first block that mixes active and inactive reads (the kernel
+    alone at the others); at block ``timed`` it also times both and counts
+    what the step must do: the bytes (``acs_needed_bytes``) under max
+    combining, the operations and exp/log calls (``acs_lse_needed``) under
+    logsumexp combining. ``lse`` picks the kernel."""
 
-    def __init__(self, timed: int, check=lambda t: True):
-        self.timed, self.check = timed, check
+    def __init__(self, timed: int, check=lambda t: True, lse=False):
+        self.timed, self.check, self.lse = timed, check, lse
+        self.kern, self.ref = acs_steps(lse)
         self.blocks = self.checked = self.mixed = 0
         self.err = 0.0
-        self.ms = self.plain_ms = self.timed_B = self.needed_bytes = None
+        self.ms = self.plain_ms = self.timed_B = self.needed = None
         self.timed_args = None  # (start1, active) of the timed block
 
     def __call__(self, tabs, prev, stale, *args):
         *rest, sel = args
-        if not self.check(self.blocks):
-            lva_acs.acs_block(tabs, prev, stale, *args)
+        active = rest[-1]
+        mixed = 0 < int(active.sum()) < active.numel()
+        if not (self.check(self.blocks) or self.blocks == self.timed
+                or (mixed and self.mixed == 0)):
+            self.kern(tabs, prev, stale, *args)
             self.blocks += 1
             return sel
-        check_sorted(prev, f"batch block {self.blocks} prev")
+        if not self.lse:
+            check_sorted(prev, f"batch block {self.blocks} prev")
         st_ref = [x.clone() for x in stale]
         sel_ref = torch.empty_like(sel)
-        lva_acs.acs_block_ref(tabs, prev, st_ref, *rest, sel_ref)
+        self.ref(tabs, prev, st_ref, *rest, sel_ref)
         if self.blocks == self.timed:
             self.timed_B = sel.shape[0]
             self.timed_args = (rest[2].tolist(), rest[3].tolist())
-            self.needed_bytes = merge_roofline.acs_needed_bytes(
-                tabs, prev[0], st_ref[0], sel_ref, *rest)
+            self.needed = (
+                merge_roofline.acs_lse_needed(tabs, prev, st_ref, sel_ref,
+                                              *rest) if self.lse else
+                merge_roofline.acs_needed_bytes(tabs, prev[0], st_ref[0],
+                                                sel_ref, *rest))
             # both steps only read prev and rewrite the same stale cells,
             # so repeating them leaves the state as one call would
             scratch = [x.clone() for x in stale]
-            self.ms = cuda_ms(lambda: lva_acs.acs_block(
-                tabs, prev, scratch, *args), reps=20, warmup=3)
-            self.plain_ms = cuda_ms(lambda: lva_acs.acs_block_ref(
-                tabs, prev, scratch, *args), reps=3)
-        lva_acs.acs_block(tabs, prev, stale, *args)
-        check_sorted(stale, f"batch block {self.blocks} output")
+            self.ms = cuda_ms(lambda: self.kern(tabs, prev, scratch, *args),
+                              reps=20, warmup=3)
+            self.plain_ms = cuda_ms(lambda: self.ref(tabs, prev, scratch,
+                                                     *args), reps=3)
+        self.kern(tabs, prev, stale, *args)
+        if not self.lse:
+            check_sorted(stale, f"batch block {self.blocks} output")
         self.err = max(self.err, same_bufs(stale, st_ref))
         if not torch.equal(sel, sel_ref):
             fail(f"kernel selections differ at batch block {self.blocks}")
-        active = rest[-1]
-        if 0 < int(active.sum()) < active.numel():
-            self.mixed += 1
+        self.mixed += mixed
         self.blocks += 1
         self.checked += 1
         return sel
 
 
-def phase_bucket16(headline, post):
-    """Phase 1, last part: the kernel's L <= 16 bucket (int8 selections,
-    emitted pairs in local memory), which no golden reaches, at L = 12 on
-    one read: blocks at position 0, spread over the read and at its end
-    held bit-equal to ``acs_block_ref``."""
+def phase_bucket16(headline, post, tag="phase 1"):
+    """Phase 1 (and 7b), last part: the kernel's L <= 16 bucket (int8
+    selections; emitted pairs or candidates in local memory), which no
+    golden reaches, at L = 12 on one read: blocks at position 0, spread over
+    the read and at its end held bit-equal to the plain version."""
     dec = LVADecoder(dataclasses.replace(headline, list_size=12),
                      device="cuda")
     T = post.shape[0]
     blocks = {0, 1, T // 4, T // 2, 3 * T // 4, T - 1}
-    check = CheckedACS(timed=-1, check=blocks.__contains__)
+    check = CheckedACS(timed=-1, check=blocks.__contains__,
+                       lse=dec.spec.combine_lse)
     _, _, valid = dec.decode(post[None], acs=check)
     if check.checked != len(blocks) or not valid[0, 0]:
         fail(f"L = 12: {check.checked} of {len(blocks)} blocks checked, "
              f"top entry valid: {bool(valid[0, 0])}")
-    log(f"phase 1: L = 12: blocks {sorted(blocks)} of {T} bit-equal, rows "
-        f"sorted; {int(valid.sum())} valid entries")
+    log(f"{tag}: L = 12: blocks {sorted(blocks)} of {T} bit-equal"
+        f"{'' if check.lse else ', rows sorted'}; {int(valid.sum())} valid "
+        f"entries")
 
 
-def phase_batch(enc, exp, device):
-    """Phase 1b: the kernel against its plain version at the main path's
-    shapes. The reads are phase 3's first batch (same seed and channel)
-    through ``PipelineDecoder.decode_posts``, which splits them by
+def phase_batch(enc, exp, device, path_combine="max", every=1,
+                tag="phase 1b"):
+    """Phase 1b (and 7c): the kernel against its plain version at the main
+    path's shapes. The reads are phase 3's first batch (same seed and
+    channel) through ``PipelineDecoder.decode_posts``, which splits them by
     orientation, so each launch holds several reads of different lengths,
-    each with its own beam start, some of them past their end. Every block
-    of both decodes is checked. Returns (B, kernel ms, plain ms) of the
-    timed block, its (start1, active), the bytes its step must move, and
-    the max |score error|."""
+    each with its own beam start, some of them past their end. Every
+    ``every``-th block of both decodes is checked, and the first that
+    mixes active and inactive reads. Returns (B, kernel ms, plain ms) of
+    the timed block, its (start1, active), what its step must do
+    (``CheckedACS.needed``), and the max |score error|."""
     posts, rcs, _ = simulate_posts(enc.oligos, 8,
                                    np.random.default_rng(SEED))
     for flag in (False, True):
-        log(f"phase 1b: rc={flag}: nblk "
+        log(f"{tag}: rc={flag}: nblk "
             f"{[len(p) for p, r in zip(posts, rcs) if r == flag]}")
-    check = CheckedACS(timed=min(map(len, posts)) // 2)
+    check = CheckedACS(timed=min(map(len, posts)) // 2,
+                       check=lambda t: t % every == 0,
+                       lse=path_combine == LSE)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = PipelineDecoder(exp, 8, 20, device=device).decode_posts(
+    out = PipelineDecoder(exp, 8, 20, path_combine=path_combine,
+                          device=device).decode_posts(
         posts, rcs, enc.num_oligos_data + enc.num_oligos_rs, acs=check)
-    log(f"phase 1b: {check.blocks} blocks bit-equal, rows sorted, "
-        f"{check.mixed} of them with active and inactive reads "
-        f"({time.perf_counter() - t0:.1f} s); {int((out.index >= 0).sum())} "
-        f"of {len(posts)} reads pass CRC; block {check.timed} at "
-        f"B={check.timed_B}: kernel {check.ms:.4f} ms/block, acs_block_ref "
-        f"{check.plain_ms:.4f} ms/block")
+    log(f"{tag}: {check.checked} of {check.blocks} blocks bit-equal"
+        f"{'' if check.lse else ', rows sorted'}, {check.mixed} of them "
+        f"with active and inactive reads ({time.perf_counter() - t0:.1f} s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB); {int((out.index >= 0).sum())} of {len(posts)} reads pass "
+        f"CRC; block {check.timed} at B={check.timed_B}: kernel "
+        f"{check.ms:.4f} ms/block, plain {check.plain_ms:.4f} ms/block")
     if check.mixed == 0:
         fail("no checked block mixed active and inactive reads")
     return (check.timed_B, check.ms, check.plain_ms), check.timed_args, \
-        check.needed_bytes, check.err
+        check.needed, check.err
 
 
 def acs_bound(dec, start1, active, nbytes: int) -> dict:
@@ -390,6 +452,35 @@ def acs_bound(dec, start1, active, nbytes: int) -> dict:
             "flat_ops": flat, "flat_ops_ms": 1e3 * flat / peak}
 
 
+def lse_bound(dec, start1, active, needed) -> dict:
+    """The bound of one logsumexp ACS block step whose reads have window
+    starts ``start1`` and flags ``active``: the largest of the bytes a flat
+    merge must move (every slot of the W + 1 previous rows read, the W rows
+    written and the selections: ``bytes_every_slot``) over the memory rate,
+    its operations (``acs_lse_needed``: the scans and class passes over
+    every candidate, as this step's data needs them) over the FP32 lane
+    peak, and its exp and log calls over the special function units' peak.
+    ``needed``: (operations, exp calls, log calls) of the step."""
+    spec = dec.spec
+    L, C, W = spec.list_size, spec.code.nstate_conv, spec.window
+    cells = 8 * L * C
+    nbytes = sum(active) * (2 * W + 1) * cells * 12 + len(start1) * W * cells
+    ops, nexp, nlog = needed
+    peak, _ = merge_roofline.lane_peak()
+    sfu = peak * SFU_PER_SM / merge_roofline.FP32_LANES_PER_SM
+    times = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+             "operations": 1e3 * ops / peak,
+             "sfu": 1e3 * (nexp + nlog) / sfu}
+    by = max(times, key=times.get)
+    return {"bytes": nbytes, "bytes_ms": times["bytes"], "ops": ops,
+            "ops_ms": times["operations"], "exp_calls": nexp,
+            "log_calls": nlog, "sfu_per_s": sfu, "sfu_ms": times["sfu"],
+            "bound_ms": times[by],
+            # the kernels line's unit: the SFU calls are operations
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_term": by}
+
+
 def acs_resources() -> dict:
     """The ACS kernel's L = 8 build on the card: registers, local bytes
     (stack frame and spills) and resident threads per SM. Fails if it uses
@@ -401,26 +492,40 @@ def acs_resources() -> dict:
 
 
 def phase_goldens(device):
-    """Phase 2: the reference binary's golden lists through the kernel."""
-    cases = json.loads((GOLDEN / "manifest.json").read_text())
-    for case in cases:
-        cfg = DecodeConfig(
-            code=ConvCodeConfig(mem=case["mem"], rate=case["rate"],
-                                msg_len=case["msg_len"], rc=case["rc"]),
-            list_size=case["list_size"],
-            max_deviation=case["max_deviation"])
-        post = np.fromfile(GOLDEN / f"{case['name']}.post",
-                           dtype="<f4").reshape(-1, 5, 8)
-        t0 = time.perf_counter()
-        msgs, _, valid = LVADecoder(cfg, device=device).decode(post[None])
-        got = ["".join(map(str, m)) for m, v in zip(msgs[0], valid[0]) if v]
-        want = (GOLDEN / f"{case['name']}.lists").read_text().split()
-        log(f"phase 2: {case['name']}: T={post.shape[0]} "
-            f"{'identical' if got == want else 'DIFFERENT'} "
-            f"({time.perf_counter() - t0:.3f} s)")
-        if got != want:
-            fail(f"golden {case['name']} differs from the reference lists")
-    return len(cases)
+    """Phase 2: the reference binary's golden lists of every set in
+    ``GOLDEN_SETS`` through the K-way kernel, with sync markers where a case
+    has them, each list bit-identical. Returns the number of cases."""
+    n = 0
+    for name in GOLDEN_SETS:
+        root = GOLDEN / name
+        torch.cuda.reset_peak_memory_stats()
+        for case in json.loads((root / "manifest.json").read_text()):
+            cfg = DecodeConfig(
+                code=ConvCodeConfig(
+                    mem=case["mem"], rate=case["rate"],
+                    msg_len=case["msg_len"], rc=case["rc"],
+                    sync_marker=case.get("sync_marker", ""),
+                    sync_period=case.get("sync_period", 0)),
+                list_size=case["list_size"],
+                max_deviation=case["max_deviation"])
+            post = np.fromfile(root / f"{case['name']}.post",
+                               dtype="<f4").reshape(-1, 5, 8)
+            t0 = time.perf_counter()
+            msgs, _, valid = LVADecoder(cfg, device=device).decode(
+                post[None])
+            got = ["".join(map(str, m))
+                   for m, v in zip(msgs[0], valid[0]) if v]
+            want = (root / f"{case['name']}.lists").read_text().split()
+            log(f"phase 2: {name}/{case['name']}: T={post.shape[0]} "
+                f"{'identical' if got == want else 'DIFFERENT'} "
+                f"({time.perf_counter() - t0:.3f} s)")
+            if got != want:
+                fail(f"golden {name}/{case['name']} differs from the "
+                     f"reference lists")
+            n += 1
+        log(f"phase 2: {name}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return n
 
 
 def phase_sim_decode(data: bytes, args):
@@ -461,6 +566,7 @@ def build_kernels() -> None:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
     _build.load_lva_acs()
+    _build.load_lva_lse()
     _build.load_probes()
     _build.load_expand()
     _build.load_mxu_expand()
@@ -1005,6 +1111,82 @@ def phase_lowering(peak: float):
     return entries, {"fori_rates": rates, "p7": p7}
 
 
+def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
+    """Phase 7: logsumexp path combining through its flat-merge kernel
+    (``acs_block_lse``) at the headline config. (a) The kernel against its
+    plain version on one read at B=1, as phase 1 does for the K-way kernel
+    but without the sorted-rows check (lse rows are unsorted by design);
+    (b) the L <= 16 bucket at L = 12; (c) phase 3's first batch at the main
+    path's shapes (B=4 by orientation), every ``LSE_CHECK_EVERY``-th block
+    checked, one block timed and its bound counted; (d) the lse path end to
+    end: phase 3's 32 reads in batches of 8 through ``PipelineDecoder(...,
+    path_combine="logsumexp")``, ``majority_vote`` and ``recover_file``,
+    with the launch counts set to 0 just before. Returns the kernels-line
+    entry and the ``lva_acs_lse`` line."""
+    cfg = dataclasses.replace(headline, path_combine=LSE)
+    dec = LVADecoder(cfg, device="cuda")
+    ms_b1, plain_b1, err, _ = phase_kernel(dec, post, tag="phase 7a")
+    phase_bucket16(cfg, post, tag="phase 7b")
+    (B, ms, plain_ms), (start1, active), needed, err_b = phase_batch(
+        enc, exp, "cuda", LSE, every=LSE_CHECK_EVERY, tag="phase 7c")
+    bnd = lse_bound(dec, start1, active, needed)
+    log(f"lva_acs_lse bound at B={B}: {bnd['bytes']} bytes (every slot) "
+        f"{bnd['bytes_ms']:.4f} ms, {bnd['ops']} ops {bnd['ops_ms']:.4f} ms, "
+        f"{bnd['exp_calls']} exp + {bnd['log_calls']} log calls "
+        f"{bnd['sfu_ms']:.4f} ms: {bnd['bound_ms']:.4f} ms by "
+        f"{bnd['bound_term']}; the kernel reaches "
+        f"{100 * bnd['bound_ms'] / ms:.1f}% of it")
+
+    num_oligos = enc.num_oligos_data + enc.num_oligos_rs
+    n_reads, batch = 32, 8
+    rng = np.random.default_rng(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lva_acs.LAUNCHES = lva_acs.LSE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    pdec = PipelineDecoder(exp, 8, 20, path_combine=LSE, device="cuda")
+    index, payload = [], []
+    for _ in range(n_reads // batch):
+        posts, rcs, _ = simulate_posts(enc.oligos, batch, rng)
+        out = pdec.decode_posts(posts, rcs, num_oligos)
+        index.append(out.index)
+        payload.append(out.payload)
+    ok, got = recover_file(majority_vote(np.concatenate(index),
+                                         np.concatenate(payload)),
+                           exp, len(data))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, kway = lva_acs.LSE_LAUNCHES, lva_acs.LAUNCHES
+    crc = int((np.concatenate(index) >= 0).sum())
+    log(f"phase 7d: logsumexp path: {wall:.3f} s for {n_reads} reads = "
+        f"{wall / n_reads:.4f} s/read; {crc} pass CRC; {launches} lse kernel "
+        f"launches and {kway} K-way launches for {pdec.steps} block steps; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (ok and got == data):
+        fail("the logsumexp path did not recover the file byte for byte")
+    if launches == 0 or launches != pdec.steps or kway:
+        fail(f"{launches} lse and {kway} K-way launches for {pdec.steps} "
+             f"block steps")
+    entry = {
+        "name": "lva_acs_lse", "route": "cuda",
+        "source": f"{CSRC}/lva_lse.cu",
+        "replaces": "nanopore_dna_storage_tpu/ops/lva_pallas.py:929 "
+                    "(logsumexp branch :614-646)",
+        "launches": launches, "max_abs_err": max(err, err_b), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+        "bound_by": bnd["bound_by"],
+        # no one PyTorch call computes a list-Viterbi block step
+        "library_ms": None}
+    line = {"gpu": gpu, "ms_B1": ms_b1, "plain_ms_B1": plain_b1,
+            f"ms_B{B}": ms, f"plain_ms_B{B}": plain_ms,
+            "L8": lva_acs.lse_kernel_info(8), f"bound_B{B}": bnd,
+            "share_of_bound": bnd["bound_ms"] / ms,
+            "s_per_read": wall / n_reads, "launches": launches,
+            "steps": pdec.steps, "crc_pass": crc}
+    return entry, line
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1014,9 +1196,14 @@ def main() -> int:
     gpu = gpu_line()
     log(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    t0 = time.perf_counter()
     build_kernels()
     resources = acs_resources()
     log(f"phase 0: ACS kernel at L = 8: {json.dumps(resources)}")
+    # the lse kernel keeps its candidates in local memory by design
+    log(f"phase 0: lse ACS kernel at L = 8: "
+        f"{json.dumps(lva_acs.lse_kernel_info(8))}")
+    log(f"phase 0: done in {time.perf_counter() - t0:.1f} s")
 
     data = np.random.default_rng(SEED).integers(
         0, 256, 100, dtype=np.uint8).tobytes()
@@ -1033,8 +1220,10 @@ def main() -> int:
     acs_ms, _, err, acs_start1 = phase_kernel(dec, posts[0])
     phase_bucket16(headline, posts[0])
     log(f"phase 1: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     (B, ms, plain_ms), (start1, active), nbytes, err_b = phase_batch(
         enc, exp, "cuda")
+    log(f"phase 1b: done in {time.perf_counter() - t0:.1f} s")
     acs = acs_bound(dec, start1, active, nbytes)
     log(f"lva_acs bound at B={B}: {acs['needed_ops']} needed ops over the "
         f"lane peak, {nbytes} bytes needed ({acs['bytes_every_slot']} "
@@ -1050,11 +1239,12 @@ def main() -> int:
     log(f"phase 2: {n} goldens identical in {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    _, stats, launches, _ = phase_sim_decode(data, [
+    _, stats, launches, wall = phase_sim_decode(data, [
         "--experiment", "7", "--list-size", "8", "--num-reads", "32",
         "--batch", "8", "--seed", str(SEED), "--device", "cuda"])
     log(f"phase 3: peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; done in "
+        f"{wall:.1f} s")
     if launches == 0 or launches != stats.steps:
         fail(f"{launches} kernel launches for {stats.steps} block steps")
 
@@ -1071,9 +1261,15 @@ def main() -> int:
         roofline["lane_peak_ops_per_s"])
     log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    lse_entry, lse_line = phase_lse(enc, exp, data, headline, posts[0], gpu)
+    log(f"phase 7: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
-    log(f"lva_acs time below: one block step at the main path's B={B}")
+    log(f"lva_acs and lva_acs_lse times below: one block step at the main "
+        f"path's B={B}")
     log(json.dumps({"lva_acs": lva_line}))
+    log(json.dumps({"lva_acs_lse": lse_line}))
     log(json.dumps({"roofline": roofline}))
     log(json.dumps({"lowering": lowering_rates}))
     log(f"gpu: {gpu}")
@@ -1090,7 +1286,7 @@ def main() -> int:
         "bound_by": acs["bound_by"],
         # no one PyTorch call computes a list-Viterbi block step
         "library_ms": None,
-    }, *probes, *expansions, *lowerings]}))
+    }, lse_entry, *probes, *expansions, *lowerings]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -52,8 +52,12 @@ class DecodeConfig:
     """List-Viterbi decode parameters (viterbi_convolutional_code.cpp:137-173).
 
     ``path_combine`` is "max" (the production binary: a duplicate message
-    keeps its better score). "logsumexp" (the older binary's
-    --use-logsumexp) is not ported yet.
+    keeps its better score), whose ACS step is the K-way merge of
+    ``ops/lva_acs.py`` ``acs_block``, which needs every buffer row sorted in
+    slot; or "logsumexp" (the older binary's --use-logsumexp,
+    extra/viterbi_nanopore.cpp:883-888: a duplicate class adds its path
+    probability mass), whose step is the flat merge ``acs_block_lse``, which
+    needs no order of the rows and leaves them unsorted.
     """
 
     code: ConvCodeConfig
@@ -64,10 +68,7 @@ class DecodeConfig:
     path_combine: str = "max"
 
     def __post_init__(self):
-        if self.path_combine == "logsumexp":
-            raise NotImplementedError(
-                "logsumexp path combining is not ported yet")
-        if self.path_combine != "max":
+        if self.path_combine not in ("max", "logsumexp"):
             raise ValueError("path_combine must be 'max' or 'logsumexp'")
         if self.list_size < 1:
             raise ValueError("list_size must be >= 1")

@@ -94,22 +94,37 @@ def check_tensor(name, t, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def load_lva_acs() -> ctypes.CDLL:
-    """The ACS kernel library (``csrc/lva_acs.cu``), built on first call."""
-    if "lva_acs" not in _LIBS:
-        lib = ctypes.CDLL(str(build("lva_acs", ["lva_acs.cu"])))
+def _load_step(name: str) -> ctypes.CDLL:
+    """An ACS block-step library ``csrc/<name>.cu``, built on first call;
+    both have the same C interface under the prefix ``name``."""
+    if name not in _LIBS:
+        lib = ctypes.CDLL(str(build(name, [f"{name}.cu"])))
         p, i = ctypes.c_void_p, ctypes.c_int
+        launch, info, error_string = (getattr(lib, f"{name}_{x}") for x in
+                                      ("launch", "info", "error_string"))
         # 16 pointers (buffers, selections, transitions, start1, active,
         # tables), then B, P, L, C, W and the CUDA stream
-        lib.lva_acs_launch.argtypes = [p] * 16 + [i] * 5 + [p]
-        lib.lva_acs_launch.restype = i
+        launch.argtypes = [p] * 16 + [i] * 5 + [p]
+        launch.restype = i
         # L, and where registers, local bytes and threads per SM go
-        lib.lva_acs_info.argtypes = [i, ctypes.POINTER(i)]
-        lib.lva_acs_info.restype = i
-        lib.lva_acs_error_string.argtypes = [i]
-        lib.lva_acs_error_string.restype = ctypes.c_char_p
-        _LIBS["lva_acs"] = lib
-    return _LIBS["lva_acs"]
+        info.argtypes = [i, ctypes.POINTER(i)]
+        info.restype = i
+        error_string.argtypes = [i]
+        error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def load_lva_acs() -> ctypes.CDLL:
+    """The K-way ACS kernel library (``csrc/lva_acs.cu``), built on first
+    call."""
+    return _load_step("lva_acs")
+
+
+def load_lva_lse() -> ctypes.CDLL:
+    """The logsumexp ACS kernel library (``csrc/lva_lse.cu``), built on
+    first call."""
+    return _load_step("lva_lse")
 
 
 def load_probes() -> ctypes.CDLL:

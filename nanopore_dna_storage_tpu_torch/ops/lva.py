@@ -7,7 +7,9 @@ Counterpart of ``nanopore_dna_storage_tpu/ops/lva.py`` ``LVADecoder``
 ``decode(posts, nblks) -> (msgs, scores, valid)`` contract. The decode
 runs on ``device``, the card unless the caller passes ``device="cpu"``:
 the ACS step is the CUDA kernel on a CUDA device and its plain PyTorch
-version on the CPU. Without a card the default raises at once.
+version on the CPU, ``acs_block`` under max combining and
+``acs_block_lse`` under logsumexp combining. Without a card the default
+raises at once.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 from ..config import DecodeConfig
 from ..trellis import tables as tb
 from . import lva_decode
-from .lva_acs import acs_block
+from .lva_acs import acs_block, acs_block_lse
 from .lva_consts import DecodeSpec, LVAConsts
 
 
@@ -63,17 +65,25 @@ class LVADecoder:
         return out
 
     def decode(self, posts: np.ndarray, nblks: Optional[np.ndarray] = None,
-               acs: Callable = acs_block):
+               acs: Optional[Callable] = None):
         """Decode a batch.
 
         Args:
           posts: [B, T, 5, 8] float32, zero-padded beyond each read's nblk.
           nblks: [B] block counts (default: all T).
-          acs: the ACS step; ``acs_block`` unless a caller compares it with
-            ``lva_acs.acs_block_ref`` on the same device.
+          acs: the ACS step: by default ``acs_block_lse`` under logsumexp
+            combining and ``acs_block`` otherwise; a caller that compares a
+            kernel with its plain version (``lva_acs.acs_block_ref``,
+            ``acs_block_lse_ref``) passes one. The K-way ``acs_block`` is
+            refused under logsumexp combining: its buffers are unsorted.
         Returns:
           (msgs uint8 [B, L, msg_len], scores f32 [B, L], valid bool [B, L])
         """
+        if acs is None:
+            acs = acs_block_lse if self.spec.combine_lse else acs_block
+        elif acs is acs_block and self.spec.combine_lse:
+            raise ValueError("the K-way ACS kernel needs sorted buffer rows, "
+                             "which logsumexp combining does not keep")
         posts = np.asarray(posts, dtype=np.float32)
         B, T = posts.shape[:2]
         nblks = np.full(B, T, np.int64) if nblks is None else \

@@ -54,6 +54,7 @@ class DecodeSpec:
     window: int  # beam width W
     npos_pad: int  # padded positions P, incl. the leading ghost row
     n_msg_words: int  # 32-bit words per traced-back message
+    combine_lse: bool  # logsumexp path combining (else max)
 
     @classmethod
     def build(cls, cfg: DecodeConfig) -> Tuple["DecodeSpec",
@@ -62,8 +63,8 @@ class DecodeSpec:
         tabs = tb.build_tables(code, cfg.max_deviation)
         return cls(code=code, list_size=cfg.list_size, window=tabs.window,
                    npos_pad=tabs.npos_pad + 1,
-                   n_msg_words=-(-(code.config.msg_len + code.mem) // 32)), \
-            tabs
+                   n_msg_words=-(-(code.config.msg_len + code.mem) // 32),
+                   combine_lse=cfg.path_combine == "logsumexp"), tabs
 
 
 @dataclasses.dataclass(frozen=True)

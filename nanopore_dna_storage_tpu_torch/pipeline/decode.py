@@ -20,7 +20,6 @@ from ..coding.rs import rs_decode_oligos
 from ..config import ConvCodeConfig, DecodeConfig, ExperimentConfig
 from ..io.post import pack_posts
 from ..ops.lva import LVADecoder
-from ..ops.lva_acs import acs_block
 
 
 @dataclasses.dataclass
@@ -39,10 +38,13 @@ class ListDecodeOutcome:
 class PipelineDecoder:
     """Forward and reverse-complement decoders of one experiment on one
     torch device, ``cuda`` unless the caller asks for ``cpu``
-    (``pipeline/decode.py`` ``PipelineDecoder``)."""
+    (``pipeline/decode.py`` ``PipelineDecoder``); ``path_combine`` goes to
+    both orientations' ``DecodeConfig``, as the reference passes its
+    keywords on."""
 
     def __init__(self, exp: ExperimentConfig, list_size: int,
-                 max_deviation: Optional[int] = 20, *, device="cuda"):
+                 max_deviation: Optional[int] = 20, *,
+                 path_combine: str = "max", device="cuda"):
         self.exp = exp
         self.list_size = list_size
         base = dict(mem=exp.conv_mem, rate=exp.conv_rate,
@@ -50,7 +52,8 @@ class PipelineDecoder:
         self.fwd, self.rc = (
             LVADecoder(DecodeConfig(
                 code=ConvCodeConfig(rc=rc, **base), list_size=list_size,
-                max_deviation=max_deviation), device=device)
+                max_deviation=max_deviation, path_combine=path_combine),
+                device=device)
             for rc in (False, True))
 
     @property
@@ -60,7 +63,7 @@ class PipelineDecoder:
 
     def decode_posts(self, posts: Sequence[np.ndarray],
                      rc_flags: Sequence[bool], num_oligos: int,
-                     acs: Callable = acs_block) -> ListDecodeOutcome:
+                     acs: Optional[Callable] = None) -> ListDecodeOutcome:
         """Decode a batch of truncated posts with per-read orientation;
         ``acs`` is the ACS step, as in ``LVADecoder.decode``."""
         batch, nblks = pack_posts(posts)

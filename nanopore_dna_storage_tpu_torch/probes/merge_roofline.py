@@ -16,7 +16,8 @@ its clock, as the TPU probe read its VPU peak. ``acs_work_ops``,
 ``acs_executed_ops`` and ``acs_needed_ops`` count an ACS block step's
 work in the same unit: as ``bench.py`` counted it, as a flat scan over
 every candidate executes it, and as the K-way merge needs it;
-``acs_needed_bytes`` counts the bytes the K-way merge must move. With
+``acs_needed_bytes`` counts the bytes the K-way merge must move, and
+``acs_lse_needed`` the operations and exp/log calls of a logsumexp step. With
 ``--write`` the result goes to ``docs/GPU_ROOFLINE.json``.
 
     python -m nanopore_dna_storage_tpu_torch.probes.merge_roofline \\
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops._build import check_tensor, load_probes
+from ..ops.lva_acs import candidates
 from ..ops.lva_consts import NCRF, NQ_MAX, sel_format
 
 NC, F, CT = 64, 8, 512
@@ -267,6 +269,54 @@ def acs_needed_bytes(tabs, prev_sc, out_sc, sel, stay_tr, move_tr, start1,
         nbytes += 4 * int(depth.sum()) + 8 * int(hdepth.sum()) \
             + 12 * L * nlive
     return nbytes
+
+
+def acs_lse_needed(tabs, prev, out, sel, stay_tr, move_tr, start1,
+                   active):
+    """(operations, exp calls, log calls) one logsumexp ACS block step needs
+    on these inputs when it merges every candidate, as ``csrc/lva_lse.cu``
+    does, in the unit of ``acs_work_ops``.
+
+    Per live (read active, state valid, position past 0) cell, that is per
+    window row, CRF destination f with ``rows[f]`` candidate rows and conv
+    state, with ``n = rows[f] * L`` candidates and ``h`` rounds that pop a
+    class: n score adds, ``22 (rows[f] - 1) L`` for the move rows' hashes,
+    ``min(h + 1, L)`` max scans of 3 ops a candidate (a round after the
+    first empty one needs none), ``h`` class passes of 4 ops a candidate
+    (two compares, an and, the knockout), 4 ops per output slot, and per
+    popped class a subtract and an add for each live member and the add of
+    best and the log. One exp per live member of a popped class, one log
+    per popped class. ``prev``: the step's previous buffers; ``out``: its
+    output buffers (the stale buffers after the step); ``sel`` its
+    selections; the rest as in ``acs_block``."""
+    B, P, _, L, C = prev[0].shape
+    W = sel.shape[1]
+    dev = prev[0].device
+    rows = 1 + (tabs["qmap"][:, 1:] >= 0).sum(1).to(dev)  # [8f]
+    n = (rows * L)[:, None]  # [8f, 1]
+    ops = exp = log = 0
+    for b in range(B):
+        if not bool(active[b]):
+            continue
+        one = slice(b, b + 1)
+        pos, cand_sc, cand_key, _ = candidates(
+            tabs, tuple(x[one] for x in prev), stay_tr[one], move_tr[one],
+            start1[one], W)
+        live = ((tabs["valid"][pos[0]] != 0)
+                & (pos[0] != 1)[:, None])[:, None]  # [W, 1, C]
+        hit = sel[b].reshape(W, NCRF, L, C) >= 0
+        h = hit.sum(2)  # [W, 8f, C]
+        key = (out[1][b, pos[0]].long() << 30) | out[2][b, pos[0]]
+        finite = cand_sc[0] > NEG  # [W, 8f, C, 8q L]
+        members = sum(((cand_key[0] == key[:, :, r, :, None]) & finite).sum(-1)
+                      * hit[:, :, r] for r in range(L))
+        cell = (n + 22 * (rows[:, None] - 1) * L + 3 * n
+                * torch.clamp(h + 1, max=L) + 4 * n * h + 4 * L
+                + 2 * members + h)
+        ops += int(torch.where(live, cell, 0).sum())
+        exp += int(torch.where(live, members, 0).sum())
+        log += int(torch.where(live, h, 0).sum())
+    return ops, exp, log
 
 
 def lane_peak(device: int = 0):

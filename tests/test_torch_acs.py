@@ -56,15 +56,16 @@ def _read(code_cfg, seed):
     return synthetic_post(bases, rng, noise=0.9)
 
 
-def _jax_states(code, cfg, post, t_stop):
-    """Pallas decoder state (prev, stale) before block ``t_stop``, plus the
-    decoder and the read's beam starts; ``code`` is the JAX package's config
-    of ``cfg.code``."""
+@functools.lru_cache(maxsize=None)
+def _jax_step(code, cfg):
+    """The JAX Pallas decoder of ``cfg`` and its block step, jitted once per
+    config; ``code`` is the JAX package's config of ``cfg.code``, and the
+    decoder combines paths as ``cfg`` does."""
     jdec = JaxLVADecoder(JaxDecodeConfig(
         code=code, list_size=cfg.list_size,
-        max_deviation=cfg.max_deviation, backend="pallas_interpret"))
+        max_deviation=cfg.max_deviation, path_combine=cfg.path_combine,
+        backend="pallas_interpret"))
     pd = jdec._pallas
-    starts = jdec.schedule(np.array([post.shape[0]]), post.shape[0])[0]
 
     @jax.jit
     def step(prev, stale, postf, start1, active):
@@ -72,6 +73,16 @@ def _jax_states(code, cfg, post, t_stop):
                                     stale, postf, start1, active,
                                     interpret=True)
 
+    return jdec, step
+
+
+def _jax_states(code, cfg, post, t_stop):
+    """Pallas decoder state (prev, stale) before block ``t_stop``, plus the
+    decoder and the read's beam starts; ``code`` and ``cfg`` as in
+    ``_jax_step``."""
+    jdec, step = _jax_step(code, cfg)
+    pd = jdec._pallas
+    starts = jdec.schedule(np.array([post.shape[0]]), post.shape[0])[0]
     b = lva_pallas._init_buffers(pd.spec, pd.consts)
     prev, stale = b[:3], b[3:]
     for t in range(t_stop):
@@ -93,13 +104,14 @@ CASES = [
 
 
 @functools.lru_cache(maxsize=None)
-def _case(rate, rc, block, active, dev):
+def _case(rate, rc, block, active, dev, path_combine="max"):
     """One ``CASES`` entry: the port's tables, the Pallas state carried
-    over, this block's inputs and the Pallas kernel's outputs of it."""
+    over, this block's inputs and the Pallas kernel's outputs of it, both
+    decoders combining paths by ``path_combine``."""
     L = 4
     code = ConvCodeConfig(mem=6, rate=rate, msg_len=30, rc=rc)
     cfg = DecodeConfig(code=twin(code, port_config), list_size=L,
-                       max_deviation=dev)
+                       max_deviation=dev, path_combine=path_combine)
     post = _read(code, seed=rate * 10 + rc)
     pd, step, prev, stale, starts = _jax_states(code, cfg, post, block)
     start1 = int(starts[block]) + 1
