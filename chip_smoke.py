@@ -39,8 +39,14 @@ Phases, each fatal on failure:
    butterfly), the transpose and every one-hot product mode (tf32, bf16,
    u8x4) bit-equal to its plain version at the scripts' shapes, all copies
    equal, u8x4 bit-exact on P5's hashes and P7's payloads, the tf32
-   mismatches counted; each kernel, plain version and library call timed;
-   then both entry points, with their launch counts set to 0 before;
+   mismatches counted; both libraries free of stack frames and spills, and
+   the one-hot library's SASS all ``HGMMA`` (wgmma), no ``HMMA``; each
+   kernel, plain version and library call timed (P2's maps beside
+   theirs, the 4096-copy rates beside their bound and one copy kernel, the
+   bf16 product beside a bf16 ``bmm`` with f32 output); the expansion's
+   elements written per second at 256 and 4096 copies by the gather, the
+   shuffle, the one-hot product and the library's TF32 matmul; then both
+   entry points, with their launch counts set to 0 before;
 6. the lowering probes (``probes/lowering.py``): every P1 kernel (repeat
    through ``lane_map``, dynrow, int16, fori in both placements, reshape,
    alias) bit-equal to its plain version and to the numpy result at the
@@ -82,6 +88,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -753,6 +760,27 @@ def graph_ms(fn) -> float:
     return expand.graph_us(fn) / 1e3
 
 
+def lane_map_library(case, xt):
+    """One PyTorch call computing ``case``'s map on ``xt``, and the bytes
+    the function must move (its sources read once, its output written
+    once): the element map ``repeat_interleave`` of the first C / k
+    columns, the tile map ``Tensor.repeat`` of them, the pair map
+    ``repeat_interleave`` of the even columns, the row map
+    ``repeat_interleave`` of the rows, the transpose ``t().contiguous()``."""
+    R, C = xt.shape
+    n = C // case.k
+    calls = {
+        "transpose": (lambda: xt.t().contiguous(), R * C),
+        "element": (lambda: torch.repeat_interleave(
+            xt[:, :n], case.k, dim=1, output_size=C), R * n),
+        "tile": (lambda: xt[:, :n].repeat(1, case.k), R * n),
+        "pair": (lambda: torch.repeat_interleave(xt[:, ::2], 2, dim=1),
+                 R * C // 2),
+        "row": (lambda: torch.repeat_interleave(xt, 2, dim=0), R * C)}
+    call, sources = calls[case.map_]
+    return call, 4 * (sources + call().numel())
+
+
 def time_lane_map(case_name: str, form: str):
     """(kernel, plain, library) ms of one script case at its shape, all
     three from CUDA graphs, its (bound_ms, bound_by) (the function reads
@@ -761,26 +789,18 @@ def time_lane_map(case_name: str, form: str):
     case = next(c for c in expand.CASES if c.name == case_name)
     _, xt = case.inputs("cuda")
     kernel, plain = case.bind(xt, form)
-    if case.map_ == "transpose":
-        def library():
-            return xt.t().contiguous()
-        nbytes = 2 * 4 * xt.numel()
-    else:  # the element map: repeat_interleave of the first C / k columns
-        n = xt.shape[1] // case.k
-
-        def library():
-            return torch.repeat_interleave(xt[:, :n], case.k, dim=1,
-                                           output_size=xt.shape[1])
-        nbytes = 4 * (xt.shape[0] * n + xt.numel())
+    library, nbytes = lane_map_library(case, xt)
     same_bits(f"{case_name} library call", library(), plain())
     return (*(graph_ms(f) for f in (kernel, plain, library)),
             *bound(nbytes, 0, 1.0), case.replaces)
 
 
 def onehot_library(xt, et, mode: str, G: int):
-    """One PyTorch call computing ``mode``'s product over G copies: the
-    TF32 matmul, the bf16 matmul (bf16 out) or, for u8x4, the full-f32
-    matmul, exact on a one-hot E."""
+    """One PyTorch call computing ``mode``'s product over G copies, and
+    whether it writes f32: the TF32 matmul; for bf16 a ``bmm`` of the bf16
+    operands with f32 output (``out_dtype``), or, where this torch refuses
+    that, the bf16 matmul with bf16 output, half the bytes; for u8x4 the
+    full-f32 matmul, exact on a one-hot E."""
     if mode == "tf32":
         def call():
             torch.backends.cuda.matmul.allow_tf32 = True
@@ -788,12 +808,71 @@ def onehot_library(xt, et, mode: str, G: int):
                 return torch.matmul(xt.expand(G, *xt.shape), et)
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = False
-        return call
+        return call, True
     if mode == "bf16":
-        xb, eb = xt.bfloat16(), et.bfloat16()
-        return lambda: torch.matmul(xb.expand(G, *xb.shape), eb)
+        xb, eb = xt.bfloat16().expand(G, *xt.shape), et.bfloat16()
+        try:
+            torch.bmm(xb[:1], eb[None], out_dtype=torch.float32)
+        except (TypeError, RuntimeError) as e:
+            log(f"phase 5: torch.bmm refuses out_dtype=float32 for bf16 "
+                f"({type(e).__name__}: {e}); the bf16 library call writes "
+                f"bf16, half the bytes")
+            return (lambda: torch.matmul(xb, eb)), False
+        eg = eb.expand(G, *eb.shape)
+        return (lambda: torch.bmm(xb, eg, out_dtype=torch.float32)), True
     xf, ef = xt.view(torch.float32), et.float()
-    return lambda: torch.matmul(xf.expand(G, *xf.shape), ef)
+    return (lambda: torch.matmul(xf.expand(G, *xf.shape), ef)), True
+
+
+def library_resources(name: str) -> dict:
+    """ptxas's stack frame, spill and register lines of library ``name``'s
+    kernels (from its build log) and, from its SASS (``cuobjdump``), the
+    count of Hopper warpgroup MMA (``HGMMA``) and older warp MMA
+    (``HMMA``) instructions. Fails if a kernel uses a stack frame or
+    spills."""
+    path = _build.build(name, LIBS[name])
+    text = path.with_suffix(".log").read_text()
+    frames = [tuple(map(int, m)) for m in re.findall(
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+        r"spill loads", text)]
+    if any(any(f) for f in frames):
+        fail(f"a kernel of {name} uses a stack frame or spills: {frames}")
+    sass = subprocess.run(
+        [str(pathlib.Path(_build.nvcc()).with_name("cuobjdump")), "-sass",
+         str(path)], capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    return {"registers": [int(r) for r in
+                          re.findall(r"Used (\d+) registers", text)],
+            "HGMMA": len(re.findall(r"\bHGMMA", sass)),
+            "HMMA": len(re.findall(r"\bHMMA", sass))}
+
+
+def expansion_rates() -> None:
+    """Phase 5: the expansion y[j] = x[j >> 2] in elements written per
+    second at 256 and 4096 copies, by every route on the card: the gather
+    and the shuffle at P3's [8, 2048] k=4, the one-hot product in tf32 and
+    u8x4 and the library's TF32 matmul at P5's [256,128]@[128,512]."""
+    case = next(c for c in expand.CASES if c.name == "p3.jnp_repeat.k4")
+    _, xt = case.inputs("cuda")
+    _, x5, E5 = mxu_expand.p5_inputs()
+    ops = {f: (case.bind(xt, f)[0], xt.numel()) for f in ("gather", "shfl")}
+    for mode in ("tf32", "u8x4"):
+        xm, em = mxu_expand.mode_inputs(x5, E5, mode, "cuda")
+        ops[f"onehot_{mode}"] = (
+            lambda G, xm=xm, em=em, mode=mode: mxu_expand.onehot_mma(
+                xm, em, mode, G), 256 * 512)
+        if mode == "tf32":
+            ops["library_tf32_matmul"] = (
+                lambda G, xm=xm, em=em: onehot_library(xm, em, "tf32",
+                                                       G)[0](),
+                256 * 512)
+    for G in (256, 4096):
+        rates = {name: G * n / (cuda_ms(lambda: fn(G), reps=5, warmup=1)
+                                / 1e3) / 1e9
+                 for name, (fn, n) in ops.items()}
+        log(f"phase 5: expansion at {G} copies, G elements/s written: "
+            f"{json.dumps(rates)}")
+        torch.cuda.empty_cache()
 
 
 def phase_expand():
@@ -813,6 +892,11 @@ def phase_expand():
                 f"{case.name} [{form}]", got, plain().expand_as(got)))
     log(f"phase 5: {len(expand.CASES)} lane-map and transpose cases, every "
         f"form bit-equal to its plain version, 4 copies each, all equal")
+    for name in ("expand", "mxu_expand"):
+        res = library_resources(name)
+        log(f"phase 5: {name}: {json.dumps(res)}")
+        if name == "mxu_expand" and not (res["HGMMA"] and not res["HMMA"]):
+            fail(f"mxu_expand's SASS is not wgmma alone: {res}")
 
     mx = mxu_expand
     h, x5, E5 = mx.p5_inputs()
@@ -849,6 +933,14 @@ def phase_expand():
         log(f"phase 5: {form} at {name}: kernel {ms:.6f} ms, plain "
             f"{plain_ms:.6f} ms, library {lib_ms:.6f} ms, bound {bms:.6f} "
             f"ms (CUDA graphs of {expand.GRAPH_CALLS} calls)")
+    # P2's maps at [8,1024] k=2 through the gather, beside their library
+    # calls
+    for name in ("p2.jnprepeat", "p2.pltpurepeat_semantics", "p2.roll",
+                 "p2.subl_upsample"):
+        ms, plain_ms, lib_ms, bms, _, _ = time_lane_map(name, "gather")
+        log(f"phase 5: gather at {name}: kernel {ms:.6f} ms, plain "
+            f"{plain_ms:.6f} ms, library {lib_ms:.6f} ms, bound {bms:.6f} "
+            f"ms (CUDA graphs of {expand.GRAPH_CALLS} calls)")
     big = 4096  # copies: the device rate of each form, past launch latency
     for form in expand.FORMS:
         case = next(c for c in expand.CASES if c.name == (
@@ -856,9 +948,21 @@ def phase_expand():
         _, xt = case.inputs("cuda")
         kernel, _ = case.bind(xt, form)
         ms = cuda_ms(lambda: kernel(big), reps=5, warmup=1)
+        # the function reads the [8, 512] sources once and writes G slots
+        n = xt.shape[1] // case.k
+        nbytes = 4 * (xt.shape[0] * n + big * xt.numel())
+        if form == "gather":  # one copy kernel, the same for every form
+            def library():
+                return xt[:, :n, None].expand(xt.shape[0], n, case.k)[
+                    None].expand(big, xt.shape[0], n, case.k).reshape(
+                    big, *xt.shape)
+            same_bits(f"gather x {big} library call", library(), kernel(big))
+            lib_ms = cuda_ms(library, reps=5, warmup=1)
         log(f"phase 5: {form} [8,2048] k=4 x {big} copies: {ms:.4f} ms, "
             f"{big * xt.numel() / (ms / 1e3) / 1e9:.3f} G elements/s "
-            f"written ({big * xt.numel() * 4 / (ms / 1e3) / 1e9:.1f} GB/s)")
+            f"written ({big * xt.numel() * 4 / (ms / 1e3) / 1e9:.1f} GB/s); "
+            f"bound {bound(nbytes, 0, 1.0)[0]:.4f} ms by bytes ({nbytes} B); "
+            f"the library's copy {lib_ms:.4f} ms")
     torch.cuda.empty_cache()
 
     G = 256
@@ -871,7 +975,8 @@ def phase_expand():
                      warmup=2)
         plain_ms = cuda_ms(lambda: mx.onehot_mma_ref(
             xt.expand(G, M, K), et, mode), reps=3)
-        lib_ms = cuda_ms(onehot_library(xt, et, mode, G), reps=10, warmup=2)
+        library, f32_out = onehot_library(xt, et, mode, G)
+        lib_ms = cuda_ms(library, reps=10, warmup=2)
         nbytes = 4 * xt.numel() + et.numel() * et.element_size() \
             + 4 * G * M * N
         ops = 2 * G * M * K * N * (4 if mode == "u8x4" else 1)
@@ -880,9 +985,12 @@ def phase_expand():
                        REPLACES_MXU[mode])
         log(f"phase 5: onehot {mode} [{M},{K}]@[{K},{N}] x{G}: kernel "
             f"{ms:.4f} ms ({G * M * K * N / (ms / 1e3) / 1e12:.3f} T MAC/s), "
-            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+            f"({'f32' if f32_out else 'bf16, half the bytes'} out), bound "
             f"{timed[mode][3]:.4f} ms by {timed[mode][4]}")
         torch.cuda.empty_cache()
+
+    expansion_rates()
 
     torch.cuda.synchronize()
     for counts in (expand.LAUNCHES, mx.LAUNCHES):
@@ -1073,7 +1181,7 @@ def phase_lowering(peak: float):
             # the float64 product warmed up, then the mean of 10 calls
             "plain_ms": cuda_ms(lambda: mx.onehot_mma_ref(
                 xt.expand(G7, M, K), et, mode), reps=10, warmup=3),
-            "library_ms": cuda_ms(onehot_library(xt, et, mode, G7),
+            "library_ms": cuda_ms(onehot_library(xt, et, mode, G7)[0],
                                   reps=10, warmup=2)}
         log(f"phase 6: P7 onehot {mode} [{M},{K}]@[{K},{N}] x{G7}: kernel "
             f"{p7[mode]['ms']:.4f} ms, plain {p7[mode]['plain_ms']:.4f} ms, "

@@ -91,6 +91,18 @@ def tracked_masks(ct: int, logk: int) -> np.ndarray:
     return np.stack(masks).astype(np.int32)
 
 
+def pack_masks(masks: torch.Tensor) -> torch.Tensor:
+    """Stage masks int32 [S, C] (0 or not) as the butterfly kernel reads
+    them, bits in int32 [S, C / 32]: bit ``j % 32`` of word ``j // 32`` is
+    the mask of column j."""
+    S, C = masks.shape
+    if C % 32:
+        raise ValueError(f"{C} columns do not pack into 32-bit words")
+    bit = torch.arange(32, device=masks.device, dtype=torch.int64)
+    words = ((masks != 0).view(S, C // 32, 32).long() << bit).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).int()
+
+
 def butterfly_shifts(ct: int, nst: int) -> Tuple[int, ...]:
     """Shifts ct/2, ct/4, .., 1, repeated, cut to ``nst`` stages
     (``tpu_expand_probe.py`` ``shifts``)."""
@@ -155,14 +167,16 @@ def lane_map_ref(x: torch.Tensor, map_: str, k: int = 2,
 
 def lane_map(x: torch.Tensor, map_: str, k: int = 2, form: str = "gather",
              copies: int = 1, masks: Optional[torch.Tensor] = None,
-             shifts: Sequence[int] = (), start: str = "tile"
-             ) -> torch.Tensor:
+             shifts: Sequence[int] = (), start: str = "tile",
+             bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``copies`` copies of the lane map over one input: x f32 [R, C] ->
     f32 [copies, *out_shape], every copy the same. The butterfly takes
-    ``masks`` int32 [S, C] and ``shifts`` (S ints in [0, C)). CPU tensors
-    run ``lane_map_ref`` on the copies; CUDA tensors launch the kernel of
-    ``csrc/expand.cu``, which writes each copy to its own slot; anything
-    else raises."""
+    ``masks`` int32 [S, C] and ``shifts`` (S ints in [0, C)); its kernel
+    reads the masks as bits, which the wrapper packs (``pack_masks``)
+    unless ``bits`` brings them packed. CPU tensors run ``lane_map_ref`` on
+    the copies; CUDA tensors launch the kernel of ``csrc/expand.cu``, which
+    writes each copy to its own slot (gather: C % 4 == 0; shfl: C % 32 ==
+    0; butterfly: C % 64 == 0, C <= 2048); anything else raises."""
     _check_args(map_, k, form, start, masks, shifts)
     dev = x.device
     if dev.type == "cpu":
@@ -175,15 +189,20 @@ def lane_map(x: torch.Tensor, map_: str, k: int = 2, form: str = "gather",
     rout, cout = out_shape(x.shape, map_)
     if map_ in ("element", "tile") and cout % k:
         raise ValueError(f"{cout} columns do not split into k = {k}")
-    if form == "shfl" and cout % 32:
-        raise ValueError("shfl takes a multiple of 32 columns")
+    if cout % {"gather": 4, "shfl": 32, "butterfly": 64}[form] or (
+            form == "butterfly" and cout > 2048):
+        raise ValueError(f"the {form} form does not take {cout} columns")
     check_tensor("x", x, torch.float32, x.shape, dev)
     shift_arr = None
     mask_ptr = None
     if form == "butterfly":
         check_tensor("masks", masks, torch.int32, (len(shifts), cout), dev)
+        if bits is None:
+            bits = pack_masks(masks)
+        check_tensor("bits", bits, torch.int32, (len(shifts), cout // 32),
+                     dev)
         shift_arr = (ctypes.c_int * len(shifts))(*shifts) if shifts else None
-        mask_ptr = masks.data_ptr()
+        mask_ptr = bits.data_ptr()
     y = torch.empty((copies, rout, cout), dtype=torch.float32, device=dev)
     p = cout // k if map_ == "tile" else _logk(k)
     lib = load_expand()
@@ -271,17 +290,18 @@ class Case:
     def bind(self, xt: torch.Tensor, form: str):
         """(kernel, plain) for ``form`` on ``xt``: ``kernel(copies)``
         writes ``copies`` slots, ``plain()`` one result; the butterfly's
-        masks are made once, here."""
+        masks are made and packed once, here."""
         if self.map_ == "transpose":
             return (lambda copies=1: transpose(xt, copies),
                     lambda: transpose_ref(xt))
-        kw = {}
+        kw, bits = {}, None
         if form == "butterfly":
             masks = torch.from_numpy(self.masks(xt.shape[1], _logk(self.k)))
             kw = dict(masks=masks.to(xt.device), start=self.start,
                       shifts=butterfly_shifts(xt.shape[1], masks.shape[0]))
+            bits = pack_masks(kw["masks"])
         return (lambda copies=1: lane_map(xt, self.map_, self.k, form,
-                                          copies, **kw),
+                                          copies, bits=bits, **kw),
                 lambda: lane_map_ref(xt, self.map_, self.k, form, **kw))
 
 P2, P3, P4 = ("scripts/tpu_pallas_probe2.py", "scripts/tpu_repeat_probe.py",

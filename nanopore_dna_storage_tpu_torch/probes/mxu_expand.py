@@ -1,5 +1,5 @@
 """The expansion ``y[j] = x[j >> 2]`` as a one-hot product ``Y = X @ E`` on
-a CUDA card's tensor cores, with hand-written ``mma.sync``.
+a CUDA card's tensor cores, with hand-written ``wgmma``.
 
 Counterpart of ``scripts/tpu_mxu_expand_probe.py`` (P5), ``scripts/
 tpu_mxu_probe2.py`` (P6) and ``scripts/tpu_mxu_probe3.py`` (P7), which ran
@@ -81,14 +81,26 @@ def onehot_mma_ref(x: torch.Tensor, e: torch.Tensor, mode: str
     return (a.double() @ b.double()).float()
 
 
+def check_shape(M: int, K: int, N: int, copies: int) -> None:
+    """Raise unless the kernel of ``csrc/mxu_expand.cu`` takes [M, K] @
+    [K, N] x ``copies``: M a multiple of 64 (one ``wgmma`` tile of rows), K
+    and N of 32, K at most 512 (the whole K stays in shared memory beside a
+    column tile of 32 or more), and at least one copy."""
+    if M < 64 or M % 64 or K < 32 or K % 32 or K > 512 or N < 32 or N % 32 \
+            or copies < 1:
+        raise ValueError(f"onehot_mma takes M % 64 == K % 32 == N % 32 == "
+                         f"0, K <= 512 and copies >= 1, not M={M} K={K} "
+                         f"N={N} copies={copies}")
+
+
 def onehot_mma(x: torch.Tensor, e: torch.Tensor, mode: str,
                copies: int = 1) -> torch.Tensor:
     """``copies`` copies of ``X @ E`` over one input: x [M, K] (f32 for
     tf32 and bf16, int32 words for u8x4), e [K, N] (f32, or uint8 for
     u8x4) -> [copies, M, N] (f32, or int32 for u8x4), every copy the same.
     CPU tensors run ``onehot_mma_ref`` on the copies; CUDA tensors launch
-    the kernel of ``csrc/mxu_expand.cu`` (M a multiple of 16, N of 32, K of
-    32); anything else raises."""
+    the kernel of ``csrc/mxu_expand.cu`` (shapes as ``check_shape``);
+    anything else raises."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     dev = x.device
@@ -101,9 +113,7 @@ def onehot_mma(x: torch.Tensor, e: torch.Tensor, mode: str,
         raise ValueError(f"onehot_mma takes x [M, K] and e [K, N], not "
                          f"{tuple(x.shape)} and {tuple(e.shape)}")
     (M, K), N = x.shape, e.shape[1]
-    if M % 16 or N % 32 or K % 32 or copies < 1:
-        raise ValueError(f"onehot_mma takes M % 16 == N % 32 == K % 32 == "
-                         f"0 and copies >= 1, not M={M} K={K} N={N}")
+    check_shape(M, K, N, copies)
     u8 = mode == "u8x4"
     xt = torch.int32 if u8 else torch.float32
     check_tensor("x", x, xt, (M, K), dev)

@@ -227,3 +227,58 @@ def test_bad_arguments_raise():
         ex.lane_map(x, "element", 2, "butterfly",
                     masks=torch.zeros((2, 64), dtype=torch.int32),
                     shifts=(1,))
+
+
+@pytest.mark.parametrize("ct,logk", [(1024, 1), (2048, 1), (2048, 2)])
+def test_packed_bits_unpack_to_the_masks(ct, logk):
+    """``pack_masks`` (what the butterfly kernel reads) unpacks to the
+    scripts' masks, P4's ``bfly_masks`` and P2's ``tracked_masks``: bit
+    j % 32 of word j // 32 is column j's mask."""
+    for masks in (P4.bfly_masks(ct, logk), ex.tracked_masks(ct, logk)):
+        bits = ex.pack_masks(torch.from_numpy(masks)).numpy()
+        assert bits.shape == (len(masks), ct // 32) and bits.dtype == np.int32
+        unpacked = (bits.view(np.uint32)[:, :, None]
+                    >> np.arange(32, dtype=np.uint32)) & 1
+        assert np.array_equal(unpacked.reshape(len(masks), ct), masks != 0)
+
+
+@pytest.mark.parametrize("ct,logk,start", [(1024, 1, "identity"),
+                                           (2048, 1, "tile"),
+                                           (2048, 2, "tile")])
+def test_butterfly_kernel_layout_model(ct, logk, start):
+    """A numpy model of the butterfly kernel's data path: thread (warp w,
+    lane l) holds columns span l + 2 w and + 1 (span = ct / 32); a stage
+    whose shift is a whole number of spans rotates the lanes of every warp
+    (the shuffle), any other reads the row back through a shared buffer.
+    Both give roll(y, d), so the model equals ``lane_map_ref``."""
+    masks = (ex.tracked_masks if start == "identity" else ex.bfly_masks)(
+        ct, logk)
+    shifts = ex.butterfly_shifts(ct, len(masks))
+    x = np.random.default_rng(ct + logk).standard_normal(ct).astype(
+        np.float32)
+    span, warps = ct // 32, ct // 64
+    lane, w = np.meshgrid(np.arange(32), np.arange(warps), indexing="ij")
+    j = span * lane + 2 * w  # [32, warps]: each thread's first column
+    n = ct >> logk
+    v = np.stack([x[j % n if start == "tile" else j],
+                  x[(j + 1) % n if start == "tile" else j + 1]])
+    bits = ex.pack_masks(torch.from_numpy(masks)).numpy().view(np.uint32)
+    shuffled = 0
+    for s, d in enumerate(shifts):
+        word = bits[s][j >> 5] >> (j & 31).astype(np.uint32)
+        m = np.stack([word & 1, (word >> 1) & 1]) != 0
+        if d % span == 0:
+            r = v[:, (np.arange(32) - d // span) % 32, :]
+            shuffled += 1
+        else:
+            row = np.empty(ct, np.float32)
+            row[j], row[j + 1] = v[0], v[1]
+            r = np.stack([row[(j - d) % ct], row[(j + 1 - d) % ct]])
+        v = np.where(m, r, v)
+    got = np.empty(ct, np.float32)
+    got[j], got[j + 1] = v[0], v[1]
+    want = ex.lane_map_ref(torch.from_numpy(x[None]), "element", 1 << logk,
+                           "butterfly", torch.from_numpy(masks), shifts,
+                           start)[0].numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert shuffled == 5  # the rolls by ct / 2 .. ct / 32 are shuffles

@@ -229,3 +229,23 @@ def test_unsupported_device_raises(mode):
         mx.onehot_mma(x, e, mode)
     with pytest.raises(ValueError, match="unknown mode"):
         mx.onehot_mma(x, e, "fp8")
+
+
+@pytest.mark.parametrize("M,K,N,copies,ok", [
+    (256, 128, 512, 256, True),  # P5, P6's first three, P7 at 512 copies
+    (320, 128, 512, 512, True),
+    *((r, k, n, 256, True) for r, k, n, _, _ in mx.P6_POINTS[3:]),
+    (32, 128, 512, 1, False), (100, 128, 512, 1, False),
+    (0, 128, 512, 1, False), (256, 16, 512, 1, False),
+    (256, 48, 512, 1, False), (256, 1024, 512, 1, False),
+    (256, 128, 16, 1, False), (256, 128, 48, 1, False),
+    (256, 128, 512, 0, False)])
+def test_shape_rule(M, K, N, copies, ok):
+    """The kernel's shape rule, which the wrapper checks before a launch:
+    every P5, P6 and P7 point passes; each bad M, K, N or copy count
+    raises."""
+    if ok:
+        mx.check_shape(M, K, N, copies)
+    else:
+        with pytest.raises(ValueError, match="onehot_mma takes"):
+            mx.check_shape(M, K, N, copies)
