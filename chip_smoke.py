@@ -39,11 +39,15 @@ Phases, each fatal on failure:
    butterfly), the transpose and every one-hot product mode (tf32, bf16,
    u8x4) bit-equal to its plain version at the scripts' shapes, all copies
    equal, u8x4 bit-exact on P5's hashes and P7's payloads, the tf32
-   mismatches counted; both libraries free of stack frames and spills, and
-   the one-hot library's SASS all ``HGMMA`` (wgmma), no ``HMMA``; each
-   kernel, plain version and library call timed (P2's maps beside
-   theirs, the 4096-copy rates beside their bound and one copy kernel, the
-   bf16 product beside a bf16 ``bmm`` with f32 output); the expansion's
+   mismatches counted; the shuffle form also at every k up to 32 and at
+   columns that end in a partial warp, the transpose at shapes of every
+   tile height on both its 16-byte and 4-byte paths; both libraries free of
+   stack frames and spills, and the one-hot library's SASS all ``HGMMA``
+   (wgmma), no ``HMMA``; each kernel, plain version and library call timed
+   (P2's maps beside theirs; every lane-map form at 4096 copies of [8,
+   2048] and the transpose at 32,768 of [16, 128], 268 MB each, beside
+   their bound and one copy kernel of the library writing the same copies;
+   the bf16 product beside a bf16 ``bmm`` with f32 output); the expansion's
    elements written per second at 256 and 4096 copies by the gather, the
    shuffle, the one-hot product and the library's TF32 matmul; then both
    entry points, with their launch counts set to 0 before;
@@ -141,6 +145,21 @@ TC_OPS_PER_S = {"tf32": 495e12, "bf16": 989e12, "u8x4": 1979e12}
 # special function units of one Hopper SM: transcendental results per clock
 # (exp, log), against its 128 FP32 lanes
 SFU_PER_SM = 16
+# phase 5: the shuffle form checked at every k it takes and at columns
+# that end in a partial warp (96, 2080); the transpose at shapes of each
+# tile height and both paths ((shape, x aligned to 16 bytes))
+SHFL_KS = (1, 2, 4, 8, 16, 32)
+SHFL_COUTS = (1024, 2048, 96, 2080)
+TRANSPOSE_SHAPES = (((16, 128), True), ((128, 16), True), ((17, 45), True),
+                    ((33, 100), True), ((1, 1), True), ((8, 64), True),
+                    ((4, 4), True), ((6, 30), True), ((13, 50), True),
+                    ((16, 128), False))
+# phase 5: copies of the lane map's [8, 2048] and the transpose's [16, 128]
+# timed past launch latency (calls timed, after 2 warm-ups): both write
+# 268 MB
+LANE_COPIES = 4096
+TRANSPOSE_COPIES = 32768
+COPIES_REPS = 20
 # the script kernel each one-hot mode stands in for (f32 DEFAULT, bf16,
 # HIGHEST)
 REPLACES_MXU = {"tf32": "scripts/tpu_mxu_probe2.py:33",
@@ -781,6 +800,20 @@ def lane_map_library(case, xt):
     return call, 4 * (sources + call().numel())
 
 
+def copies_library(case, xt, G: int):
+    """One PyTorch call writing G copies of ``case``'s result on ``xt`` (the
+    element map or the transpose; one copy kernel of a broadcast view), and
+    the bytes the function must move: its sources read once, the G copies
+    written once."""
+    R, C = xt.shape
+    if case.map_ == "transpose":
+        return (lambda: xt.t()[None].expand(G, C, R).contiguous(),
+                4 * (R * C + G * R * C))
+    n = C // case.k
+    return (lambda: xt[:, :n, None].expand(R, n, case.k)[None].expand(
+        G, R, n, case.k).reshape(G, R, C)), 4 * (R * n + G * R * C)
+
+
 def time_lane_map(case_name: str, form: str):
     """(kernel, plain, library) ms of one script case at its shape, all
     three from CUDA graphs, its (bound_ms, bound_by) (the function reads
@@ -892,6 +925,26 @@ def phase_expand():
                 f"{case.name} [{form}]", got, plain().expand_as(got)))
     log(f"phase 5: {len(expand.CASES)} lane-map and transpose cases, every "
         f"form bit-equal to its plain version, 4 copies each, all equal")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for k in SHFL_KS:
+        for cout in SHFL_COUTS:
+            x = torch.randn((8, cout), generator=gen, device="cuda")
+            got = expand.lane_map(x, "element", k, "shfl", 4)
+            err["shfl"] = max(err["shfl"], same_bits(
+                f"shfl k={k} [8,{cout}]", got, expand.lane_map_ref(
+                    x, "element", k, "shfl").expand_as(got)))
+    for (R, C), aligned in TRANSPOSE_SHAPES:
+        # an unaligned x starts one float into its storage
+        x = torch.randn(R * C + 1, generator=gen, device="cuda")[
+            int(not aligned):][:R * C].view(R, C)
+        got = expand.transpose(x, 4)
+        err["transpose"] = max(err["transpose"], same_bits(
+            f"transpose [{R},{C}] aligned={aligned}", got,
+            expand.transpose_ref(x).expand_as(got)))
+    log(f"phase 5: shfl at k in {SHFL_KS} and {SHFL_COUTS} columns (partial "
+        f"warps at 96 and 2080), the transpose at {TRANSPOSE_SHAPES} "
+        f"((shape, x aligned to 16 bytes)), bit-equal to their plain "
+        f"versions, 4 copies each, all equal")
     for name in ("expand", "mxu_expand"):
         res = library_resources(name)
         log(f"phase 5: {name}: {json.dumps(res)}")
@@ -941,28 +994,42 @@ def phase_expand():
         log(f"phase 5: gather at {name}: kernel {ms:.6f} ms, plain "
             f"{plain_ms:.6f} ms, library {lib_ms:.6f} ms, bound {bms:.6f} "
             f"ms (CUDA graphs of {expand.GRAPH_CALLS} calls)")
-    big = 4096  # copies: the device rate of each form, past launch latency
+    # many copies: each kernel's device rate past launch latency, beside
+    # one library call writing the same copies and the bound
+    many = {}
+    lane = next(c for c in expand.CASES if c.name == "p3.jnp_repeat.k4")
+    bfly = next(c for c in expand.CASES if c.name == "p4.butterfly.k4")
+    _, xl = lane.inputs("cuda")
+    library, nbytes = copies_library(lane, xl, LANE_COPIES)
+    lib_ms = cuda_ms(library, reps=COPIES_REPS, warmup=2)
     for form in expand.FORMS:
-        case = next(c for c in expand.CASES if c.name == (
-            "p4.butterfly.k4" if form == "butterfly" else "p3.jnp_repeat.k4"))
-        _, xt = case.inputs("cuda")
-        kernel, _ = case.bind(xt, form)
-        ms = cuda_ms(lambda: kernel(big), reps=5, warmup=1)
-        # the function reads the [8, 512] sources once and writes G slots
-        n = xt.shape[1] // case.k
-        nbytes = 4 * (xt.shape[0] * n + big * xt.numel())
-        if form == "gather":  # one copy kernel, the same for every form
-            def library():
-                return xt[:, :n, None].expand(xt.shape[0], n, case.k)[
-                    None].expand(big, xt.shape[0], n, case.k).reshape(
-                    big, *xt.shape)
-            same_bits(f"gather x {big} library call", library(), kernel(big))
-            lib_ms = cuda_ms(library, reps=5, warmup=1)
-        log(f"phase 5: {form} [8,2048] k=4 x {big} copies: {ms:.4f} ms, "
-            f"{big * xt.numel() / (ms / 1e3) / 1e9:.3f} G elements/s "
-            f"written ({big * xt.numel() * 4 / (ms / 1e3) / 1e9:.1f} GB/s); "
-            f"bound {bound(nbytes, 0, 1.0)[0]:.4f} ms by bytes ({nbytes} B); "
-            f"the library's copy {lib_ms:.4f} ms")
+        kernel, _ = (bfly if form == "butterfly" else lane).bind(xl, form)
+        same_bits(f"{form} x {LANE_COPIES}: the library call", library(),
+                  kernel(LANE_COPIES))
+        ms = cuda_ms(lambda: kernel(LANE_COPIES), reps=COPIES_REPS, warmup=2)
+        many[form] = (LANE_COPIES, ms, lib_ms, bound(nbytes, 0, 1.0)[0])
+        log(f"phase 5: {form} [8,2048] k=4 x {LANE_COPIES} copies: "
+            f"{ms:.4f} ms, {LANE_COPIES * xl.numel() / (ms / 1e3) / 1e9:.3f} "
+            f"G elements/s written ({nbytes / (ms / 1e3) / 1e9:.1f} GB/s); "
+            f"bound {many[form][3]:.4f} ms by bytes ({nbytes} B); the "
+            f"library's copy {lib_ms:.4f} ms")
+    torch.cuda.empty_cache()
+    case = next(c for c in expand.CASES if c.name == "p2.transpose")
+    _, xt = case.inputs("cuda")
+    kernel, _ = case.bind(xt, "transpose")
+    library, nbytes = copies_library(case, xt, TRANSPOSE_COPIES)
+    same_bits(f"transpose x {TRANSPOSE_COPIES}: the library call",
+              library(), kernel(TRANSPOSE_COPIES))
+    ms = cuda_ms(lambda: kernel(TRANSPOSE_COPIES), reps=COPIES_REPS,
+                 warmup=2)
+    lib_ms = cuda_ms(library, reps=COPIES_REPS, warmup=2)
+    many["transpose"] = (TRANSPOSE_COPIES, ms, lib_ms,
+                         bound(nbytes, 0, 1.0)[0])
+    log(f"phase 5: transpose [16,128] x {TRANSPOSE_COPIES} copies: {ms:.4f} "
+        f"ms ({nbytes / (ms / 1e3) / 1e9:.1f} GB/s); bound "
+        f"{many['transpose'][3]:.4f} ms by bytes ({nbytes} B); the "
+        f"library's t()[None].expand(G, C, R).contiguous() {lib_ms:.4f} ms")
+    del library, kernel
     torch.cuda.empty_cache()
 
     G = 256
@@ -1022,6 +1089,10 @@ def phase_expand():
             "max_abs_err": err[k], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms})
+        if k in many:  # the same kernel writing many copies
+            entries[-1].update(zip(
+                ("copies", "copies_ms", "copies_library_ms",
+                 "copies_bound_ms"), many[k]))
     return entries
 
 

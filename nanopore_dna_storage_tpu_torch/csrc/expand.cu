@@ -20,35 +20,45 @@
 // in three forms (one kernel each):
 //   gather     every thread loads its own sources;
 //   shfl       the element map only, k a power of two up to 32: each warp
-//              loads its 32 / k sources once and spreads them with
-//              __shfl_sync;
+//              loads its sources once and spreads them with __shfl_sync;
 //   butterfly  the TPU formulation, carried over only so the card can time
 //              it: the stages y = where(mask[s], roll(y, d_s), y) run with
 //              the scripts' own shifts and masks (data-independent,
 //              computed and packed as bits by the wrapper), in their order,
 //              from the identity or from the tile of the prefix.
-// transpose: [R, C] -> [C, R] through a 32 x 33 shared-memory tile.
+// transpose: [R, C] -> [C, R] through one shared-memory tile a block.
 //
 // What bounds them on this card: bytes. No form does arithmetic; a gather
-// reads 4 B and writes 4 B per element, so at the scripts' shapes (32 to
+// reads 4 B and writes 4 B per element, so at the scripts' shapes (8 to
 // 64 KB) a launch is a few microseconds of latency, and with many copies
 // the output writes to device memory bound it (268 MB for 4096 copies of
-// [8, 2048], 0.080 ms at 3.35 TB/s). The butterfly's stages are
-// dependent: at one row per block its time is the chain of S stages, each
-// a shuffle or a shared-memory round trip with a barrier.
+// [8, 2048] or 32,768 of [16, 128], 0.080 ms at 3.35 TB/s). The
+// butterfly's stages are dependent: at one row per block its time is the
+// chain of S stages, each a shuffle or a shared-memory round trip with a
+// barrier.
 //
-// What the design does. gather: a thread owns four neighbouring columns of
-// one row (a 2-D grid, 32-bit indices), loads their sources once and
-// writes them to each copy of its share (the grid's third dimension) as
-// one 16-byte store, so a warp writes 512 contiguous bytes per copy with
-// no index arithmetic in the loop. butterfly: one block of cout / 2
-// threads per (copy, row), the stage masks loaded into shared memory once
-// as bits; the columns are laid out so that a roll by a multiple of cout /
-// 32 is a lane rotation within each warp, taken with __shfl_sync and no
-// barrier; the other rolls go through shared memory, one barrier each; the
-// row leaves as 16-byte stores. shfl: one thread per output element. Each
-// of the `copies` copies writes its own output slot, as the TPU probes'
-// grid steps each wrote theirs, so no copy's work can be dropped.
+// What the design does. Every form but the butterfly computes its values
+// once, keeps them in registers and writes them to each copy of its share
+// (the grid's third dimension, split so that one wave fills the card) as
+// 16-byte streaming stores, with no index arithmetic in the copy loop.
+// gather: a thread owns four neighbouring columns of one row (a 2-D grid,
+// 32-bit indices) and loads their sources itself. shfl: a thread owns four
+// neighbouring columns too, so a warp owns 128; the warp loads the 128 / k
+// sources of its columns once, coalesced, one per lane per register, and
+// each lane builds its four values by shuffles from the lanes that hold
+// them. transpose: a block of 512 threads stages a tile of 2048 elements of
+// x (all of [16, 128]) in shared memory once, with 16-byte loads where the
+// rows allow them, XOR-swizzled so the transposed reads are free of bank
+// conflicts; each thread then holds four neighbouring elements of one row
+// of y; shapes that do not allow 16-byte accesses (R or C not a multiple
+// of 4, or x unaligned) take 4-byte ones through the same tile. butterfly:
+// one block of cout / 2 threads per (copy, row), the stage masks loaded
+// into shared memory once as bits; the columns are laid out so that a roll
+// by a multiple of cout / 32 is a lane rotation within each warp, taken
+// with __shfl_sync and no barrier; the other rolls go through shared
+// memory, one barrier each; the row leaves as 16-byte stores. Each of the
+// `copies` copies writes its own output slot, as the TPU probes' grid
+// steps each wrote theirs, so no copy's work can be dropped.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,8 +68,11 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kMaxStages = 32;
 constexpr int kMaxRow = 2048;  // butterfly: two columns a thread, 1024 threads
-// resident gather blocks per SM the copy split aims at (2048 threads)
-constexpr int kGatherBlocksPerSm = 2048 / kBlock;
+// resident blocks per SM a copy split aims at (2048 threads)
+constexpr int kBlocksPerSm = 2048 / kBlock;
+// transpose: the elements of x one block stages (8 KB), and its threads
+constexpr int kTransposeTile = 2048;
+constexpr int kTransposeThreads = kTransposeTile / 4;
 
 enum Form { kGather = 0, kShfl = 1, kButterfly = 2 };
 enum Map { kElement = 0, kTile = 1, kPair = 2, kRow = 3 };
@@ -115,25 +128,54 @@ __global__ void __launch_bounds__(kBlock) gather_kernel(
     __stcs(reinterpret_cast<float4*>(out), q);  // streamed: no reuse
 }
 
-// shfl, the element map: one thread per output element t of [copies,
-// rout, cout]; each warp loads its 32 / k sources once and spreads them
+// shfl, the element map y[g, r, j] = x[r, j >> P] (k = 2^P <= 32): warp
+// w of the block owns the 128 columns base = 128 (8 blockIdx.x + w) ..
+// base + 127 of row blockIdx.y, lane l the four at base + 4 l. The warp's
+// 128 >> P sources x[r, (base >> P) + s] are loaded once, coalesced, one per
+// lane per register: register i of lane l holds s = 32 i + l (kRegs = 4, 2,
+// 1 registers for k = 1, 2, >= 4; lanes past the last source idle). A lane
+// writes kRegs distinct values: value d has source s = (4 l >> P) + d, taken
+// with __shfl_sync from lane s % 32 (one shuffle a register, the right one
+// selected by s / 32 where k < 4); element e of the four is value e >> P.
+// The four go to every copy blockIdx.z, + gridDim.z, ... as one 16-byte
+// store. A row whose cout is not a multiple of 128 ends in a partial warp:
+// its loads past the row and its stores past cout are masked.
+template <int P>
 __global__ void __launch_bounds__(kBlock) shfl_kernel(
-    const float* __restrict__ x, float* __restrict__ y, int p, int cin,
-    int rout, int cout, int64_t total) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  // total is a multiple of 32, so whole warps leave together
-  if (t >= total) return;
-  const int per = rout * cout;
-  const int e = static_cast<int>(t % per);
-  const int r = e / cout;
-  const int j = e % cout;
+    const float* __restrict__ x, float* __restrict__ y, int cin, int rout,
+    int cout, int copies) {
+  constexpr int kRegs = P >= 2 ? 1 : 4 >> P;
   const int lane = threadIdx.x & 31;
-  const int j0 = j - lane;  // the warp's first column, same row
-  float v = 0.0f;
-  if (lane < (32 >> p))
-    v = x[static_cast<size_t>(r) * cin + (j0 >> p) + lane];
-  y[t] = __shfl_sync(0xffffffffu, v, lane >> p);
+  const int base = 128 * (blockIdx.x * (kBlock / 32) + (threadIdx.x >> 5));
+  if (base >= cout) return;  // the whole warp: no lane of it shuffles
+  const int r = blockIdx.y;
+  const float* xr = x + static_cast<size_t>(r) * cin + (base >> P);
+  const int nsrc = (cout - base < 128 ? cout - base : 128) >> P;
+  float src[kRegs];
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) {
+    const int s = 32 * i + lane;
+    src[i] = s < nsrc ? __ldg(xr + s) : 0.0f;
+  }
+  float val[kRegs];
+#pragma unroll
+  for (int d = 0; d < kRegs; ++d) {
+    const int s = ((4 * lane) >> P) + d;
+    val[d] = __shfl_sync(0xffffffffu, src[0], s & 31);
+#pragma unroll
+    for (int i = 1; i < kRegs; ++i) {
+      const float t = __shfl_sync(0xffffffffu, src[i], s & 31);
+      val[d] = (s >> 5) == i ? t : val[d];
+    }
+  }
+  const int j0 = base + 4 * lane;
+  if (j0 >= cout) return;
+  const float4 q = make_float4(val[0], val[1 >> P], val[2 >> P], val[3 >> P]);
+  const size_t plane = static_cast<size_t>(rout) * cout;
+  const size_t step = gridDim.z * plane;
+  float* out = y + blockIdx.z * plane + static_cast<size_t>(r) * cout + j0;
+  for (int c = blockIdx.z; c < copies; c += gridDim.z, out += step)
+    __stcs(reinterpret_cast<float4*>(out), q);  // streamed: no reuse
 }
 
 // shared-memory index of column j: one float of padding after every 32
@@ -201,31 +243,94 @@ __global__ void __launch_bounds__(kMaxRow / 2) butterfly_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kBlock) transpose_kernel(
+// transpose: block b stages one tile of x, rows r0 .. r0 + TR - 1 and
+// columns c0 .. c0 + TC - 1 (TC = 2048 / TR; b = tile row * tiles_c + tile
+// column), in shared memory once: thread t loads the four neighbouring
+// elements of tile row t / (TC / 4) at column 4 (t % (TC / 4)). Then thread
+// t owns row c0 + t / G of y (G = TR / 4) and its elements r0 + 4 (t % G) ..
+// + 3, read back from the tile as a column, and writes them to every copy
+// blockIdx.z, + gridDim.z, ... A tile row's columns are stored XOR-swizzled
+// by 128 / TR times the row's group of four, so a warp's column reads hit 32
+// banks while each staged float4 stays whole. kVec: 16-byte loads and
+// stores (R and C multiples of 4, x and y aligned); else 4-byte ones.
+template <int TR, bool kVec>
+__global__ void __launch_bounds__(kTransposeThreads) transpose_kernel(
     const float* __restrict__ x, float* __restrict__ y, int R, int C,
-    int tiles_r, int tiles_c) {
-  __shared__ float tile[32][33];  // the pad keeps column reads conflict-free
-  const int per = tiles_r * tiles_c;
-  const int copy = blockIdx.x / per;
-  const int rem = blockIdx.x % per;
-  const int r0 = (rem / tiles_c) * 32;
-  const int c0 = (rem % tiles_c) * 32;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;  // 8 rows of 32 threads
-  for (int i = ty; i < 32; i += kBlock / 32) {
-    const int r = r0 + i, c = c0 + tx;
-    if (r < R && c < C) tile[i][tx] = x[static_cast<size_t>(r) * C + c];
+    int tiles_c, int copies) {
+  constexpr int TC = kTransposeTile / TR;
+  constexpr int G = TR / 4;
+  constexpr int kSwz = 128 / TR;  // G * kSwz = 32 banks
+  __shared__ __align__(16) float tile[kTransposeTile];
+  const int r0 = (blockIdx.x / tiles_c) * TR;
+  const int c0 = (blockIdx.x % tiles_c) * TC;
+  const int t = threadIdx.x;
+  {
+    const int i = t / (TC / 4), j = 4 * (t % (TC / 4));
+    const int r = r0 + i, c = c0 + j;
+    const float* src = x + static_cast<size_t>(r) * C + c;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (kVec) {
+      if (r < R && c < C) v = __ldg(reinterpret_cast<const float4*>(src));
+    } else if (r < R) {
+      if (c < C) v.x = __ldg(src);
+      if (c + 1 < C) v.y = __ldg(src + 1);
+      if (c + 2 < C) v.z = __ldg(src + 2);
+      if (c + 3 < C) v.w = __ldg(src + 3);
+    }
+    *reinterpret_cast<float4*>(tile + i * TC + (j ^ ((i >> 2) * kSwz))) = v;
   }
   __syncthreads();
-  float* out = y + static_cast<size_t>(copy) * R * C;
-  for (int i = ty; i < 32; i += kBlock / 32) {
-    const int c = c0 + i, r = r0 + tx;
-    if (r < R && c < C) out[static_cast<size_t>(c) * R + r] = tile[tx][i];
+  const int g = t % G, j = t / G;
+  const int r = r0 + 4 * g, c = c0 + j;
+  if (r >= R || c >= C) return;
+  const float* col = tile + 4 * g * TC + (j ^ (g * kSwz));
+  const float4 q = make_float4(col[0], col[TC], col[2 * TC], col[3 * TC]);
+  const size_t plane = static_cast<size_t>(R) * C;
+  const size_t step = gridDim.z * plane;
+  float* out = y + blockIdx.z * plane + static_cast<size_t>(c) * R + r;
+  if (kVec) {
+    for (int k = blockIdx.z; k < copies; k += gridDim.z, out += step)
+      __stcs(reinterpret_cast<float4*>(out), q);  // streamed: no reuse
+  } else {
+    const int n = R - r;  // elements of the group inside y's row
+    for (int k = blockIdx.z; k < copies; k += gridDim.z, out += step) {
+      __stcs(out, q.x);
+      if (n > 1) __stcs(out + 1, q.y);
+      if (n > 2) __stcs(out + 2, q.z);
+      if (n > 3) __stcs(out + 3, q.w);
+    }
   }
 }
 
-int blocks(int64_t threads) {
-  return static_cast<int>((threads + kBlock - 1) / kBlock);
+// grid.z of a copy loop: how far to split `copies` so that one wave of
+// `per_sm` resident blocks on every SM fills the card, `blocks` blocks a copy
+unsigned copy_split(int64_t blocks, int per_sm, int copies) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int64_t z = static_cast<int64_t>(sms) * per_sm / blocks;
+  z = z < 1 ? 1 : z;
+  z = z < copies ? z : copies;
+  return static_cast<unsigned>(z < 65535 ? z : 65535);
+}
+
+template <int P>
+void launch_shfl(dim3 grid, cudaStream_t s, const float* x, float* y, int cin,
+                 int rout, int cout, int copies) {
+  shfl_kernel<P><<<grid, kBlock, 0, s>>>(x, y, cin, rout, cout, copies);
+}
+
+template <int TR>
+void launch_transpose(unsigned tiles, unsigned z, bool vec, cudaStream_t s,
+                      const float* x, float* y, int R, int C, int tiles_c,
+                      int copies) {
+  const dim3 grid(tiles, 1, z);
+  if (vec)
+    transpose_kernel<TR, true><<<grid, kTransposeThreads, 0, s>>>(
+        x, y, R, C, tiles_c, copies);
+  else
+    transpose_kernel<TR, false><<<grid, kTransposeThreads, 0, s>>>(
+        x, y, R, C, tiles_c, copies);
 }
 
 }  // namespace
@@ -253,16 +358,9 @@ extern "C" int expand_lane_map_launch(const void* x, void* y, int form,
   switch (form) {
     case kGather: {
       if (cout % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-      int dev = 0, sms = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       dim3 grid((cout / 4 + kBlock - 1) / kBlock, rout, 1);
-      // split the copies so that one wave of resident blocks fills the card
-      const int64_t want = static_cast<int64_t>(sms) * kGatherBlocksPerSm /
-                           (static_cast<int64_t>(grid.x) * grid.y);
-      int64_t z = want < 1 ? 1 : want;
-      z = z < copies ? z : copies;
-      grid.z = static_cast<unsigned>(z < 65535 ? z : 65535);
+      grid.z = copy_split(static_cast<int64_t>(grid.x) * grid.y,
+                          kBlocksPerSm, copies);
       gather_kernel<<<grid, kBlock, 0, s>>>(xs, ys, map, p, cin, rout, cout,
                                             copies);
       break;
@@ -270,9 +368,15 @@ extern "C" int expand_lane_map_launch(const void* x, void* y, int form,
     case kShfl: {
       if (map != kElement || p < 0 || p > 5 || cout % 32 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
-      const int64_t total = static_cast<int64_t>(copies) * rout * cout;
-      shfl_kernel<<<blocks(total), kBlock, 0, s>>>(xs, ys, p, cin, rout,
-                                                   cout, total);
+      dim3 grid((cout + 128 * (kBlock / 32) - 1) / (128 * (kBlock / 32)),
+                rout, 1);
+      grid.z = copy_split(static_cast<int64_t>(grid.x) * grid.y,
+                          kBlocksPerSm, copies);
+      void (*const launch[])(dim3, cudaStream_t, const float*, float*, int,
+                             int, int, int) = {
+          launch_shfl<0>, launch_shfl<1>, launch_shfl<2>,
+          launch_shfl<3>, launch_shfl<4>, launch_shfl<5>};
+      launch[p](grid, s, xs, ys, cin, rout, cout, copies);
       break;
     }
     case kButterfly: {
@@ -302,15 +406,41 @@ extern "C" int expand_lane_map_launch(const void* x, void* y, int form,
   return static_cast<int>(cudaGetLastError());
 }
 
-// transpose: x f32 [R, C], y f32 [copies, C, R]. Returns cudaGetLastError().
+// transpose: x f32 [R, C], y f32 [copies, C, R], through tiles of `rows`
+// (4, 8, 16 or 32) rows of x by 2048 / rows columns; vec 1 takes 16-byte
+// loads and stores (R % 4 == 0, C % 4 == 0, x and y 16-byte aligned), vec 0
+// 4-byte ones. Returns cudaGetLastError().
 extern "C" int expand_transpose_launch(const void* x, void* y, int R, int C,
-                                       int copies, void* stream) {
-  if (R < 1 || C < 1 || copies < 1)
+                                       int copies, int rows, int vec,
+                                       void* stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+  if (R < 1 || C < 1 || copies < 1 ||
+      (rows != 4 && rows != 8 && rows != 16 && rows != 32) ||
+      (vec && (R % 4 != 0 || C % 4 != 0 || !aligned)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tr = (R + 31) / 32, tc = (C + 31) / 32;
-  transpose_kernel<<<copies * tr * tc, kBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), R, C, tr, tc);
+  const int cols = kTransposeTile / rows;  // of x in one tile
+  const int tiles_c = (C + cols - 1) / cols;
+  const int64_t tiles = static_cast<int64_t>((R + rows - 1) / rows) * tiles_c;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned z = copy_split(tiles, 2048 / kTransposeThreads, copies);
+  const auto xs = static_cast<const float*>(x);
+  const auto ys = static_cast<float*>(y);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto n = static_cast<unsigned>(tiles);
+  switch (rows) {
+    case 4:
+      launch_transpose<4>(n, z, vec, s, xs, ys, R, C, tiles_c, copies);
+      break;
+    case 8:
+      launch_transpose<8>(n, z, vec, s, xs, ys, R, C, tiles_c, copies);
+      break;
+    case 16:
+      launch_transpose<16>(n, z, vec, s, xs, ys, R, C, tiles_c, copies);
+      break;
+    default:
+      launch_transpose<32>(n, z, vec, s, xs, ys, R, C, tiles_c, copies);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

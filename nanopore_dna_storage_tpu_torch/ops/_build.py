@@ -157,8 +157,9 @@ def load_expand() -> ctypes.CDLL:
         lib.expand_lane_map_launch.argtypes = (
             [p, p] + [i] * 7 + [p, ctypes.POINTER(i), i, i, p])
         lib.expand_lane_map_launch.restype = i
-        # x, y, then R, C, copies and the stream
-        lib.expand_transpose_launch.argtypes = [p, p, i, i, i, p]
+        # x, y, then R, C, copies, the tile's rows, 16-byte accesses (0 or
+        # 1) and the stream
+        lib.expand_transpose_launch.argtypes = [p, p, i, i, i, i, i, p]
         lib.expand_transpose_launch.restype = i
         lib.expand_error_string.argtypes = [i]
         lib.expand_error_string.restype = ctypes.c_char_p

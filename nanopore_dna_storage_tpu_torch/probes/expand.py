@@ -42,6 +42,8 @@ STARTS = ("identity", "tile")
 
 # calls in the CUDA graph that times one call of a case
 GRAPH_CALLS = 100
+# elements of x one block of the transpose kernel stages in shared memory
+TRANSPOSE_TILE = 2048
 
 # Kernel launches made through ``lane_map`` (by form) and ``transpose``
 # (CUDA tensors only).
@@ -224,10 +226,21 @@ def transpose_ref(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous()
 
 
+def transpose_plan(R: int, C: int, aligned: bool = True) -> Tuple[int, bool]:
+    """How the transpose kernel cuts x f32 [R, C]: the rows of its tile (4,
+    8, 16 or 32, the fewest that hold R; the tile is ``TRANSPOSE_TILE`` /
+    rows columns wide, one block of ``TRANSPOSE_TILE`` / 4 threads each) and
+    whether it takes 16-byte loads and stores (R and C multiples of 4, the
+    data ``aligned`` to 16 bytes) or 4-byte ones."""
+    rows = next(t for t in (4, 8, 16, 32) if R <= t or t == 32)
+    return rows, R % 4 == 0 and C % 4 == 0 and aligned
+
+
 def transpose(x: torch.Tensor, copies: int = 1) -> torch.Tensor:
     """``copies`` copies of x f32 [R, C] transposed: f32 [copies, C, R].
     CPU tensors run ``transpose_ref``; CUDA tensors launch the kernel of
-    ``csrc/expand.cu``; anything else raises."""
+    ``csrc/expand.cu``, cut as ``transpose_plan`` says; anything else
+    raises."""
     dev = x.device
     if dev.type == "cpu":
         ref = transpose_ref(x)
@@ -239,11 +252,13 @@ def transpose(x: torch.Tensor, copies: int = 1) -> torch.Tensor:
     check_tensor("x", x, torch.float32, x.shape, dev)
     R, C = x.shape
     y = torch.empty((copies, C, R), dtype=torch.float32, device=dev)
+    rows, vec = transpose_plan(
+        R, C, (x.data_ptr() | y.data_ptr()) % 16 == 0)
     lib = load_expand()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.expand_transpose_launch(x.data_ptr(), y.data_ptr(), R, C,
-                                          copies, stream)
+                                          copies, rows, int(vec), stream)
     if err != 0:
         raise RuntimeError("transpose launch failed: "
                            + lib.expand_error_string(err).decode())

@@ -282,3 +282,115 @@ def test_butterfly_kernel_layout_model(ct, logk, start):
                            start)[0].numpy()
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
     assert shuffled == 5  # the rolls by ct / 2 .. ct / 32 are shuffles
+
+
+@pytest.mark.parametrize("cout", [1024, 2048, 96])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 32])
+def test_shfl_kernel_layout_model(k, cout):
+    """A numpy model of the shuffle kernel's data path: warp w owns columns
+    base = 128 w .. base + 127 of a row, lane l the four at base + 4 l;
+    register i of lane l holds source (base >> p) + 32 i + l, loaded only
+    below the warp's source count; value d of lane l is the shuffle of
+    every register from lane s % 32, s = (4 l >> p) + d, the one of
+    register s // 32 selected; element e is value e >> p, stored only below
+    cout (at cout = 96 the warp is partial). It equals ``lane_map_ref``."""
+    p = k.bit_length() - 1
+    regs = max(1, 4 >> p)
+    x = np.random.default_rng(k * cout).standard_normal((3, cout)).astype(
+        np.float32)
+    got = np.full(x.shape, np.nan, np.float32)
+    lane = np.arange(32)
+    shuffles = 0
+    for r in range(x.shape[0]):
+        for base in range(0, cout, 128):
+            nsrc = min(cout - base, 128) >> p
+            s = 32 * np.arange(regs)[:, None] + lane  # [register, lane]
+            src = np.where(s < nsrc, x[r, (base >> p) + np.minimum(
+                s, nsrc - 1)], np.float32(0))
+            val = np.zeros((regs, 32), np.float32)
+            for d in range(regs):
+                s = ((4 * lane) >> p) + d
+                for i in range(regs):
+                    t = src[i, s & 31]  # __shfl_sync(src[i], s % 32)
+                    val[d] = np.where(s >> 5 == i, t, val[d])
+                    shuffles += 1
+            j0 = base + 4 * lane
+            live = j0 < cout
+            for e in range(4):
+                got[r, j0[live] + e] = val[e >> p, live]
+    want = ex.lane_map_ref(torch.from_numpy(x), "element", k, "shfl").numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    # one shuffle per value and register: 16, 4, then 1 from k = 4 on
+    assert shuffles == x.shape[0] * -(-cout // 128) * regs * regs
+
+
+@pytest.mark.parametrize("shape,aligned", [
+    ((16, 128), True), ((128, 16), True), ((17, 45), True),
+    ((33, 100), True), ((1, 1), True), ((16, 128), False)])
+def test_transpose_kernel_layout_model(shape, aligned):
+    """A numpy model of the transpose kernel's data path, as
+    ``transpose_plan`` cuts x: block b stages its tile (thread t loads four
+    neighbouring elements of tile row t // (TC / 4), as one 16-byte load on
+    the vector path, masked per element on the scalar one) into shared
+    memory with each row's columns XOR-swizzled by its group of four; thread
+    t then reads y's row c0 + t // G, elements r0 + 4 (t % G) .. + 3, from
+    the tile's column and stores them (whole, or masked at y's row end). It
+    equals ``transpose_ref``; every tile slot is written once, and every
+    warp's reads of one tile row group hit 32 banks, its quarter-warps'
+    16-byte writes 8 distinct 16-byte bank groups."""
+    R, C = shape
+    rows, vec = ex.transpose_plan(R, C, aligned)
+    assert rows == {16: 16, 128: 32, 17: 32, 33: 32, 1: 4}[R]
+    assert vec == (aligned and shape in ((16, 128), (128, 16)))
+    tile_n = ex.TRANSPOSE_TILE
+    TC, G, swz = tile_n // rows, rows // 4, 128 // rows
+    x = np.random.default_rng(R * C).standard_normal(shape).astype(
+        np.float32)
+    got = np.full((C, R), np.nan, np.float32)
+    t = np.arange(tile_n // 4)
+    tiles_c = -(-C // TC)
+    for b in range(-(-R // rows) * tiles_c):
+        r0, c0 = (b // tiles_c) * rows, (b % tiles_c) * TC
+        i, j = t // (TC // 4), 4 * (t % (TC // 4))
+        slot = i * TC + (j ^ ((i >> 2) * swz))
+        assert slot.min() >= 0 and slot.max() < tile_n
+        for quarter in slot.reshape(-1, 8) // 4:
+            assert len(set(quarter % 8)) == 8
+        tile = np.full(tile_n, np.nan, np.float32)
+        written = np.zeros(tile_n, int)
+        r = r0 + i
+        for e in range(4):
+            c = c0 + j + e
+            ok = (r < R) & ((c0 + j < C) if vec else (c < C))
+            tile[slot + e] = np.where(
+                ok, x[np.minimum(r, R - 1), np.minimum(c, C - 1)],
+                np.float32(0))
+            written[slot + e] += 1
+        assert (written == 1).all()
+        g, jj = t % G, t // G
+        col = 4 * g * TC + (jj ^ (g * swz))
+        for m in range(4):
+            for warp in (col + m * TC).reshape(-1, 32):
+                assert len(set(warp % 32)) == 32
+        q = tile[col[:, None] + TC * np.arange(4)]  # [thread, 4]
+        r, c = r0 + 4 * g, c0 + jj
+        live = (r < R) & (c < C)
+        if vec:
+            assert (R - r[live] >= 4).all()
+        for e in range(4):
+            st = live & (R - r > e)
+            got[c[st], r[st] + e] = q[st, e]
+    want = ex.transpose_ref(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_expand_turns_refuses_the_cpu(capfd):
+    """The turns runner times each root in a process of its own, with that
+    root on PYTHONPATH; without a CUDA device that process exits non-zero,
+    and so does the runner, printing no times."""
+    if torch.cuda.is_available():
+        pytest.skip("on a CUDA device the runner times; this checks the CPU")
+    from nanopore_dna_storage_tpu_torch.probes import expand_turns
+    assert expand_turns.main(["--roots", str(ROOT)]) == 1
+    out, err = capfd.readouterr()
+    assert "needs a CUDA device" in err and "_ms" not in out
