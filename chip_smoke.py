@@ -9,8 +9,8 @@ Phases, each fatal on failure:
    ``nanopore_dna_storage_tpu_torch/csrc``, one nvcc per source, all at
    once (each timed, with its ptxas registers, stack and spills); fails if
    the K-way ACS kernel's L = 8 build uses local memory (a stack frame or
-   spills); logs the logsumexp kernel's registers, local bytes and
-   threads per SM (its candidates live in local memory by design);
+   spills) and if the logsumexp kernel's L = 8 build (its candidates in
+   registers) does;
 1. the ACS kernel (the K-way merge) against its plain PyTorch version on
    the card, at the headline decode config (experiment 7: m=11, r=5/6,
    msg_len 180, L=8, max deviation 20) on one synthetic read: buffers and
@@ -62,12 +62,15 @@ Phases, each fatal on failure:
    plain version and library call timed; P7's plain version and library
    call at its shape; then the entry point, with its launch counts set to
    0 before, which also gives the fori rates (both placements at both NQ,
-   and ``local`` at ``regs``'s residency);
+   and ``local`` at ``regs``'s residency); the reshape copy bit-equal at
+   a few odd sizes, and at [8, 8, 1,048,576] timed beside ``clone`` and its
+   bound;
 7. logsumexp path combining through its flat-merge kernel
    (``acs_block_lse``, ``csrc/lva_lse.cu``) at the headline config: the
    kernel bit-equal to its plain version on one read at B=1 (blocks over
    the read, position 0 and an inactive block, then the whole read's lists,
-   scores and validity), at L = 12 on a few blocks, and on every 16th block
+   scores and validity), at L = 3 and 5 (the L <= 8 bucket, its slots past
+   L the constant -inf) and 12 on a few blocks, and on every 16th block
    of phase 3's first batch at B=4, one block timed there; then phase 3's
    32 reads through ``PipelineDecoder(..., path_combine="logsumexp")``,
    which must recover the file byte for byte with one lse launch per block
@@ -131,6 +134,9 @@ LSE = "logsumexp"
 # phase 7c checks every 16th block against the plain version, which at
 # full width takes ~0.1-0.3 s a block step
 LSE_CHECK_EVERY = 16
+# phase 7b: the lse kernel's L <= 8 bucket below its full list size, and
+# its flat L <= 16 bucket
+LSE_LIST_SIZES = (3, 5, 12)
 # every kernel library and its sources in csrc/
 LIBS = {"lva_acs": ["lva_acs.cu"], "lva_lse": ["lva_lse.cu"],
         "probes": ["probes.cu"], "expand": ["expand.cu"],
@@ -390,12 +396,14 @@ class CheckedACS:
         return sel
 
 
-def phase_bucket16(headline, post, tag="phase 1"):
-    """Phase 1 (and 7b), last part: the kernel's L <= 16 bucket (int8
-    selections; emitted pairs or candidates in local memory), which no
-    golden reaches, at L = 12 on one read: blocks at position 0, spread over
-    the read and at its end held bit-equal to the plain version."""
-    dec = LVADecoder(dataclasses.replace(headline, list_size=12),
+def phase_bucket(headline, post, L=12, tag="phase 1"):
+    """Phase 1 (and 7b), last part: the kernel at list size ``L`` on one
+    read, blocks at position 0, spread over the read and at its end held
+    bit-equal to the plain version. At L = 12 that is the L <= 16 bucket
+    (int8 selections; emitted pairs or candidates in local memory), which
+    no golden reaches; under logsumexp combining also L = 3 and 5, the
+    L <= 8 bucket with its slots past L the constant -inf."""
+    dec = LVADecoder(dataclasses.replace(headline, list_size=L),
                      device="cuda")
     T = post.shape[0]
     blocks = {0, 1, T // 4, T // 2, 3 * T // 4, T - 1}
@@ -403,9 +411,9 @@ def phase_bucket16(headline, post, tag="phase 1"):
                        lse=dec.spec.combine_lse)
     _, _, valid = dec.decode(post[None], acs=check)
     if check.checked != len(blocks) or not valid[0, 0]:
-        fail(f"L = 12: {check.checked} of {len(blocks)} blocks checked, "
+        fail(f"L = {L}: {check.checked} of {len(blocks)} blocks checked, "
              f"top entry valid: {bool(valid[0, 0])}")
-    log(f"{tag}: L = 12: blocks {sorted(blocks)} of {T} bit-equal"
+    log(f"{tag}: L = {L}: blocks {sorted(blocks)} of {T} bit-equal"
         f"{'' if check.lse else ', rows sorted'}; {int(valid.sum())} valid "
         f"entries")
 
@@ -507,13 +515,14 @@ def lse_bound(dec, start1, active, needed) -> dict:
             "bound_term": by}
 
 
-def acs_resources() -> dict:
-    """The ACS kernel's L = 8 build on the card: registers, local bytes
-    (stack frame and spills) and resident threads per SM. Fails if it uses
-    local memory."""
-    info = lva_acs.kernel_info(8)
+def acs_resources(lse: bool = False) -> dict:
+    """The L = 8 build of the ACS kernel (the lse kernel with ``lse``) on
+    the card: registers, local bytes (stack frame and spills) and resident
+    threads per SM. Fails if it uses local memory."""
+    info = (lva_acs.lse_kernel_info if lse else lva_acs.kernel_info)(8)
     if info["local_bytes"]:
-        fail(f"the ACS kernel at L = 8 uses local memory: {info}")
+        fail(f"the {'lse ' if lse else ''}ACS kernel at L = 8 uses local "
+             f"memory: {info}")
     return info
 
 
@@ -1215,6 +1224,7 @@ def phase_lowering(peak: float):
     log("phase 6: alias updates its own buffer, keeps every row outside a "
         "random window, skips window rows outside [0, P); dynrow clamps its "
         "index; neither touches the NaN rows around its buffer")
+    large = phase_reshape_large(rng)
 
     timed = {}
     for case in lo.CASES:
@@ -1284,10 +1294,45 @@ def phase_lowering(peak: float):
         "max_abs_err": err[k], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         # int16, fori and alias take several PyTorch calls each
-        "library_ms": lib_ms}
+        "library_ms": lib_ms, **(large if k == "reshape" else {})}
         for k, (ms, plain_ms, lib_ms, bound_ms, bound_by, replaces)
         in timed.items()]
-    return entries, {"fori_rates": rates, "p7": p7}
+    return entries, {"fori_rates": rates, "p7": p7, "reshape_large": large}
+
+
+def phase_reshape_large(rng) -> dict:
+    """Phase 6, the reshape copy past launch latency: bit-equal to its plain
+    version at a few vector counts that leave a block part-filled, and at
+    ``lowering.RESHAPE_LARGE``, where it is timed beside ``clone`` (CUDA
+    events, ``COPIES_REPS`` calls after 2 warm-ups) and its bound. Returns
+    the ``large_*`` keys of the reshape's kernels-line entry."""
+    lo = lowering
+    sizes = (1, 129, 16384 + 5)
+    for n4 in sizes:
+        x = torch.from_numpy(rng.standard_normal(4 * n4).astype(
+            np.float32)).cuda().view(1, 1, -1)
+        same_bits(f"reshape copy of {n4} vectors", lo.reshape(x),
+                  lo.reshape_ref(x))
+    x = torch.randn(lo.RESHAPE_LARGE, device="cuda")
+    err = same_bits(f"reshape copy at {list(lo.RESHAPE_LARGE)}",
+                    lo.reshape(x), lo.reshape_ref(x))
+    nbytes = 8 * x.numel()
+    out = {"large_shape": list(lo.RESHAPE_LARGE), "large_bytes": nbytes,
+           "large_max_abs_err": err,
+           "large_ms": cuda_ms(lambda: lo.reshape(x), reps=COPIES_REPS,
+                               warmup=2),
+           "large_library_ms": cuda_ms(
+               lambda: x.view(-1, x.shape[-1]).clone(), reps=COPIES_REPS,
+               warmup=2),
+           "large_bound_ms": bound(nbytes, 0, 1.0)[0]}
+    log(f"phase 6: reshape copy bit-equal at {sizes} vectors; at "
+        f"{list(lo.RESHAPE_LARGE)} ({nbytes} bytes moved): kernel "
+        f"{out['large_ms']:.5f} ms ({nbytes / out['large_ms'] / 1e9:.3f} "
+        f"TB/s), clone {out['large_library_ms']:.5f} ms, bound "
+        f"{out['large_bound_ms']:.5f} ms")
+    del x
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
@@ -1295,7 +1340,8 @@ def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
     (``acs_block_lse``) at the headline config. (a) The kernel against its
     plain version on one read at B=1, as phase 1 does for the K-way kernel
     but without the sorted-rows check (lse rows are unsorted by design);
-    (b) the L <= 16 bucket at L = 12; (c) phase 3's first batch at the main
+    (b) the L <= 8 bucket at L = 3 and 5 and the L <= 16 bucket at L = 12
+    (``LSE_LIST_SIZES``); (c) phase 3's first batch at the main
     path's shapes (B=4 by orientation), every ``LSE_CHECK_EVERY``-th block
     checked, one block timed and its bound counted; (d) the lse path end to
     end: phase 3's 32 reads in batches of 8 through ``PipelineDecoder(...,
@@ -1305,7 +1351,8 @@ def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
     cfg = dataclasses.replace(headline, path_combine=LSE)
     dec = LVADecoder(cfg, device="cuda")
     ms_b1, plain_b1, err, _ = phase_kernel(dec, post, tag="phase 7a")
-    phase_bucket16(cfg, post, tag="phase 7b")
+    for L in LSE_LIST_SIZES:
+        phase_bucket(cfg, post, L, tag="phase 7b")
     (B, ms, plain_ms), (start1, active), needed, err_b = phase_batch(
         enc, exp, "cuda", LSE, every=LSE_CHECK_EVERY, tag="phase 7c")
     bnd = lse_bound(dec, start1, active, needed)
@@ -1379,9 +1426,8 @@ def main() -> int:
     build_kernels()
     resources = acs_resources()
     log(f"phase 0: ACS kernel at L = 8: {json.dumps(resources)}")
-    # the lse kernel keeps its candidates in local memory by design
-    log(f"phase 0: lse ACS kernel at L = 8: "
-        f"{json.dumps(lva_acs.lse_kernel_info(8))}")
+    lse_resources = acs_resources(lse=True)
+    log(f"phase 0: lse ACS kernel at L = 8: {json.dumps(lse_resources)}")
     log(f"phase 0: done in {time.perf_counter() - t0:.1f} s")
 
     data = np.random.default_rng(SEED).integers(
@@ -1397,7 +1443,7 @@ def main() -> int:
     t0 = time.perf_counter()
     dec = LVADecoder(headline, device="cuda")
     acs_ms, _, err, acs_start1 = phase_kernel(dec, posts[0])
-    phase_bucket16(headline, posts[0])
+    phase_bucket(headline, posts[0])
     log(f"phase 1: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     (B, ms, plain_ms), (start1, active), nbytes, err_b = phase_batch(

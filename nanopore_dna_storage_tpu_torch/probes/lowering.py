@@ -58,6 +58,9 @@ FORI_POINTS = ((32, 18), (64, 8))
 # waves of the card at full residency
 FORI_COPIES = 256
 REPEAT_K = 4
+# the large shape the copy is timed at beside the script's [8, 8, 1024]:
+# 268,435,456 bytes each way
+RESHAPE_LARGE = (8, 8, 1 << 20)
 
 # Kernel launches made through each wrapper (CUDA tensors only). The
 # repeat probe's launches count in ``expand.LAUNCHES``.

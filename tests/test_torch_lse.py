@@ -77,18 +77,131 @@ def test_lse_block_matches_pallas(rate, rc, block, active, dev):
     assert bool((st[0] > mx[0]).any()) and bool((st[0] >= mx[0]).all())
 
 
+KL = 8  # the kernel's register bucket: candidate q * KL + slot at L <= KL
+
+
+def tree_pop(cs):
+    """The kernel's pop over candidates cs [N, lanes] (N a power of two):
+    adjacent pairs at every level, the right child taken only on a strict
+    ``>``. Returns (best, index) per lane."""
+    v = cs
+    k = np.broadcast_to(np.arange(len(cs)).reshape(-1, *[1] * (cs.ndim - 1)),
+                        cs.shape)
+    while len(v) > 1:
+        right = v[1::2] > v[0::2]
+        v = np.where(right, v[1::2], v[0::2])
+        k = np.where(right, k[1::2], k[0::2])
+    return v[0], k[0]
+
+
+def scan_pop(cs):
+    """An ascending strict-``>`` scan over cs [N, lanes] from -inf: (best,
+    index), index -1 where every candidate is -inf."""
+    best = np.full(cs.shape[1:], NEG)
+    bi = np.full(cs.shape[1:], -1)
+    for i in range(len(cs)):
+        up = cs[i] > best
+        best = np.where(up, cs[i], best)
+        bi = np.where(up, i, bi)
+    return best, bi
+
+
+def _lowest_bit(m):
+    """Index of the lowest set bit of each nonzero uint64 in m."""
+    low = m & (~m + np.uint64(1))
+    return np.frexp(low.astype(np.float64))[1] - 1
+
+
+def thread_merge(cs, c1, c2, nrows, L, code_shift):
+    """Numpy model of one thread's merge in ``csrc/lva_lse.cu``, over
+    lanes: candidates cs f32, c1, c2 int64, each [nrows * L, lanes] in
+    flat order q * L + slot. At L <= 8 the register bucket: the candidates
+    laid out at q * 8 + slot in 2 rows (a flop) or 8, the slots past L and
+    the absent rows -inf; each round a tree pop, the winner's hashes, the
+    members as a uint64 mask, a loop over each lane's members in ascending
+    index (the winner's term 1.0), the knockout. Above, the flat bucket:
+    a strict-``>`` scan and a class pass in ascending flat index. Returns
+    the outputs (score, h1, h2, code), each [L, lanes], and per lane and
+    round whether it popped and its member count (int arrays [L, lanes])."""
+    lanes = cs.shape[1:]
+    regs = L <= KL
+    if regs:
+        nq = 2 if nrows == 2 else 8
+        pad = np.full((nq, KL, *lanes), NEG, np.float32)
+        pad[:nrows, :L] = cs.reshape(nrows, L, *lanes)
+        cs = pad.reshape(nq * KL, *lanes)
+        h = []
+        for x in (c1, c2):
+            hp = np.zeros((nq, KL, *lanes), np.int64)
+            hp[:nrows, :L] = x.reshape(nrows, L, *lanes)
+            h.append(hp.reshape(nq * KL, *lanes))
+        c1, c2 = h
+        per_row = KL
+    else:
+        cs = cs.copy()
+        per_row = L
+    out = [np.full((L, *lanes), NEG, np.float32),
+           np.zeros((L, *lanes), np.int64), np.zeros((L, *lanes), np.int64),
+           np.full((L, *lanes), -1, np.int64)]
+    popped = np.zeros((L, *lanes), np.int64)
+    nmem = np.zeros((L, *lanes), np.int64)
+    left = np.ones(lanes, bool)
+    for r in range(L):
+        if regs:
+            best, bi = tree_pop(cs)
+            best = np.where(left, best, NEG)
+            left = left & (best > NEG)
+        else:
+            best, bi = scan_pop(np.where(left, cs, NEG))
+            left = bi >= 0
+        bi = bi.clip(0)
+        a, bb = (np.where(left, np.take_along_axis(x, bi[None], 0)[0], 0)
+                 for x in (c1, c2))
+        member = left & (c1 == a) & (c2 == bb) & (cs > NEG)
+        total = np.zeros(lanes, np.float32)
+        if regs:
+            m = (member.astype(np.uint64)
+                 << np.arange(len(cs), dtype=np.uint64).reshape(
+                     -1, *[1] * len(lanes))).sum(0, dtype=np.uint64)
+            while m.any():
+                has = m != 0
+                i = np.where(has, _lowest_bit(m), 0)
+                sc = np.take_along_axis(cs, i[None], 0)[0]
+                with np.errstate(invalid="ignore"):
+                    t = np.where(i == bi, np.float32(1), np.exp(
+                        (sc - best).astype(np.float64)).astype(np.float32))
+                total = np.where(has, total + t, total)
+                m = m & (m - np.uint64(1))
+        else:
+            for i in range(len(cs)):
+                with np.errstate(invalid="ignore"):
+                    t = np.exp((cs[i] - best).astype(np.float64)).astype(
+                        np.float32)
+                total = np.where(member[i], total + t, total)
+        cs = np.where(member, NEG, cs)
+        with np.errstate(divide="ignore"):
+            val = best + np.log(total.astype(np.float64)).astype(np.float32)
+        out[0][r] = np.where(left, val, NEG)
+        out[1][r], out[2][r] = a, bb
+        out[3][r] = np.where(left, (bi // per_row) * code_shift
+                             + bi % per_row, -1)
+        popped[r] = left
+        nmem[r] = member.sum(0)
+    return out, popped, nmem
+
+
 def lse_model(tabs, prev, stale, stay_tr, move_tr, start1, active, W):
     """Numpy model of one block step of ``csrc/lva_lse.cu``. Per CRF
     destination f, every (read, window row, conv state) is a lane: the
     kernel's candidate loads (the stay row at pos, move row q from CRF
     predecessor g at pos - 1 and conv state (k*s + c) mod C), then L rounds
-    of its strict-> scan and its class pass in ascending flat index, the
-    position-0 path and the writes where the read is active and the state
-    valid. Returns the new stale buffers, the selections [B, W, 8L, C] and
-    the counts over the merged lanes: scans, class passes, exp and log calls,
-    and the operations by ``acs_lse_needed``'s weights (per candidate 3 a
-    scan and 4 a class pass; per lane the score adds, the move rows' hashes
-    and 4 a slot; 2 an exp term, 1 a log)."""
+    of its merge (``thread_merge``), the position-0 path and the writes
+    where the read is active and the state valid. Returns the new stale
+    buffers, the selections [B, W, 8L, C] and the counts over the merged
+    lanes: scans, class passes, exp and log calls, and the operations by
+    ``acs_lse_needed``'s weights (per candidate 3 a scan and 4 a class
+    pass; per lane the score adds, the move rows' hashes and 4 a slot; 2
+    an exp term, 1 a log)."""
     tabs = {k: v.numpy().astype(np.int64) for k, v in tabs.items()}
     p_sc = prev[0].numpy()
     p_h1, p_h2 = (x.numpy().astype(np.int64) for x in prev[1:])
@@ -131,48 +244,21 @@ def lse_model(tabs, prev, stale, stay_tr, move_tr, start1, active, W):
                 cs.append(sc)
                 c1.append(h1)
                 c2.append(h2)
-        cs = np.stack(cs)
-        c1, c2 = np.stack(c1), np.stack(c2)
         n = len(cs)
-        out = [np.full((L, B, W, C), NEG), np.zeros((L, B, W, C), np.int64),
-               np.zeros((L, B, W, C), np.int64),
-               np.full((L, B, W, C), -1, np.int64)]
-        left = np.ones((B, W, C), bool)  # some candidate is finite
-        count["ops"] += (n + 22 * (len(g) - 1) * L + 4 * L) * int(
-            merged.sum())
-        for r in range(L):
-            count["scans"] += int((left & merged).sum())
-            count["ops"] += 3 * n * int((left & merged).sum())
-            best = np.full((B, W, C), NEG)
-            bi = np.full((B, W, C), -1)
-            for i in range(n):
-                up = left & (cs[i] > best)
-                best = np.where(up, cs[i], best)
-                bi = np.where(up, i, bi)
-            left = bi >= 0
-            count["passes"] += int((left & merged).sum())
-            count["ops"] += 4 * n * int((left & merged).sum())
-            a, bb = (np.where(left, np.take_along_axis(
-                h, bi.clip(0)[None], 0)[0], 0) for h in (c1, c2))
-            total = np.zeros((B, W, C), np.float32)
-            for i in range(n):
-                member = left & (c1[i] == a) & (c2[i] == bb)
-                term = member & (cs[i] > NEG)
-                with np.errstate(invalid="ignore"):
-                    t = np.exp((cs[i] - best).astype(np.float64)).astype(
-                        np.float32)
-                total = np.where(term, total + t, total)
-                count["exp"] += int((term & merged).sum())
-                count["ops"] += 2 * int((term & merged).sum())
-                cs[i] = np.where(member, NEG, cs[i])
-            with np.errstate(divide="ignore"):
-                val = best + np.log(total.astype(np.float64)).astype(
-                    np.float32)
-            out[0][r] = np.where(left, val, NEG)
-            out[1][r], out[2][r] = a, bb
-            out[3][r] = np.where(left, (bi // L) * code_shift + bi % L, -1)
-            count["log"] += int((left & merged).sum())
-            count["ops"] += int((left & merged).sum())
+        out, popped, nmem = thread_merge(np.stack(cs), np.stack(c1),
+                                         np.stack(c2), len(g), L, code_shift)
+        # a scan runs in every round up to the first that pops nothing
+        scans = np.concatenate([np.ones((1, B, W, C), np.int64),
+                                popped[:-1]]).sum(0)
+        count["scans"] += int(np.where(merged, scans, 0).sum())
+        count["passes"] += int(np.where(merged, popped.sum(0), 0).sum())
+        count["exp"] += int(np.where(merged, nmem.sum(0), 0).sum())
+        count["log"] += int(np.where(merged, popped.sum(0), 0).sum())
+        count["ops"] += int(np.where(merged, n + 22 * (len(g) - 1) * L
+                                     + 4 * L + 3 * n * scans
+                                     + 4 * n * popped.sum(0)
+                                     + 2 * nmem.sum(0) + popped.sum(0),
+                                     0).sum())
         # trellis position 0 (padded row 1): stay only
         p0 = pos == 1
         slot = np.arange(L)[:, None, None, None]
@@ -247,7 +333,7 @@ def _adversarial(L, seed):
     return spec, tabs, prev, stale, (stay_tr, move_tr, start1, active)
 
 
-@pytest.mark.parametrize("L", [1, 2, 8, 34])
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 8, 34])
 def test_lse_model_on_adversarial_rows(L):
     spec, tabs, prev, stale, args = _adversarial(L, seed=L)
     sc = prev[0]
@@ -266,6 +352,80 @@ def test_lse_model_on_adversarial_rows(L):
         # a later slot outscores an earlier one: the outputs are unsorted
         out = st[0][1, int(args[2][1]):int(args[2][1]) + W]
         assert bool((out[:, :, 1:] > out[:, :, :-1]).any())
+
+
+def _merge_case(kind, nrows, L, lanes=96, seed=0):
+    """Candidates of ``lanes`` threads with ``nrows`` rows of L, flat index
+    q * L + slot: scores f32 and hashes (h1, h2), each [nrows * L, lanes],
+    built so that the register merge's layout, tree and member loop meet
+    ``kind``: ``row_class`` (every slot of one row in one class),
+    ``spread_class`` (one slot of every row in one class), ``tied_halves``
+    (the maximum both in the tree's lower and upper half), ``all_neg_inf``,
+    ``neg_zero`` (+0.0 and -0.0 tied at the top, classes across them) and
+    ``random`` (quarter-step scores, -inf at random, hashes from {0..3})."""
+    rng = np.random.default_rng(seed)
+    n = nrows * L
+    sc = (-rng.integers(0, 13, (n, lanes)) / 4).astype(np.float32)
+    h1 = rng.integers(0, 1 << 29, (n, lanes))
+    h2 = rng.integers(0, 1 << 29, (n, lanes))
+    lane = np.arange(lanes)
+    at = np.arange(n).reshape(nrows, L)
+    if kind == "row_class":
+        rows = at[lane % nrows]  # [lanes, L]
+        h1[rows.T, lane], h2[rows.T, lane] = 7, 9
+    elif kind == "spread_class":
+        cols = at[:, lane % L]  # [nrows, lanes]
+        h1[cols, lane], h2[cols, lane] = 7, 9
+    elif kind == "tied_halves":
+        sc[:] = -1
+        half = n // 2 if L > 1 or nrows > 1 else 1
+        lo = rng.integers(0, half, lanes)
+        hi = rng.integers(half, n, lanes) if half < n else lo
+        sc[lo, lane] = sc[hi, lane] = 0
+    elif kind == "all_neg_inf":
+        sc[:] = NEG
+    elif kind == "neg_zero":
+        sc = rng.choice(np.array([0.0, -0.0, -0.5, NEG], np.float32),
+                        (n, lanes))
+        h1, h2 = rng.integers(0, 2, (2, n, lanes))
+    else:
+        sc[rng.random(sc.shape) < 0.3] = NEG
+        h1, h2 = rng.integers(0, 4, (2, n, lanes))
+    return sc, h1, h2
+
+
+@pytest.mark.parametrize("L", [1, 3, 5, 8])
+@pytest.mark.parametrize("kind", ["row_class", "spread_class", "tied_halves",
+                                  "all_neg_inf", "neg_zero", "random"])
+def test_thread_merge_matches_merge_lse(kind, L):
+    """The model of the kernel's thread, register bucket (L <= 8: tree pop,
+    member mask, member loop) at a flop's 2 rows and a flip's 8, bit-equal
+    to the plain version's merge ``lva_acs._merge_lse`` on candidates built
+    to break it."""
+    shift = sel_format(L)[1]
+    for nrows in (2, 8):
+        sc, h1, h2 = _merge_case(kind, nrows, L, seed=nrows * 10 + L)
+        out, popped, nmem = thread_merge(sc, h1, h2, nrows, L, shift)
+        key = torch.from_numpy((h1 << 30 | h2).T.copy())
+        want = lva_acs._merge_lse(torch.from_numpy(sc.T.copy()), key, L)
+        assert np.array_equal(out[0].T.view(np.int32),
+                              want[0].numpy().view(np.int32))
+        assert np.array_equal((out[1] << 30 | out[2]).T, want[1].numpy())
+        assert np.array_equal(out[3].T, want[2].numpy())
+        top = out[3][0]
+        if kind == "all_neg_inf":
+            assert (out[3] == -1).all() and not popped.any()
+        elif kind in ("row_class", "spread_class"):
+            # a class of several members was summed
+            assert (nmem > 1).any() or L == 1 and kind == "row_class" \
+                or nrows == 1
+        else:
+            # the lowest index of the tied maxima (0.0 and -0.0 alike) wins
+            zero = (sc == 0).any(0)
+            if kind in ("tied_halves", "neg_zero"):
+                assert zero.all() if kind == "tied_halves" else zero.any()
+            first = (top // shift) * L + top % shift
+            assert (first == np.argmax(sc == 0, axis=0))[zero].all()
 
 
 @pytest.mark.parametrize("L", [1, 2, 8])
