@@ -651,22 +651,64 @@ def probe_inputs(rng, shape, scores="normal", hashes="random"):
     return [torch.from_numpy(a).cuda() for a in (x, *h)]
 
 
+def probe_cases(rng, nc, f, ct):
+    """Phase 4's extra inputs for merge and stream, as (name, x, h1, h2,
+    copies): the few hashes (six classes: whole classes knocked out, all
+    -inf columns), integer tie scores with all -inf columns, nc of 1 and
+    33, a column count (111) that no block or vector width divides, tensors
+    4 bytes past an 8-byte boundary (the stream's generic kernel), and 1
+    and 3 copies."""
+    x, h1, h2 = probe_inputs(rng, (nc, f, ct))
+    xt, t1, t2 = probe_inputs(rng, (nc, f, ct), scores="ties")
+    few = [torch.from_numpy(rng.integers(0, k, (nc, f, ct)).astype(np.int32))
+           .cuda() for k in (3, 2)]
+    xo, o1, o2 = probe_inputs(rng, (nc, 3, 37))
+    shifted = []
+    for t in (x, h1, h2):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        shifted.append(buf[1:].view(t.shape))
+        shifted[-1].copy_(t)
+    return [("few hashes", x, *few, 256), ("tie scores", xt, t1, t2, 256),
+            ("tie scores, few hashes", xt, *few, 3),
+            ("nc=1", x[:1].contiguous(), h1[:1].contiguous(),
+             h2[:1].contiguous(), 3),
+            ("nc=33", x[:33].contiguous(), h1[:33].contiguous(),
+             h2[:33].contiguous(), 256),
+            ("111 columns", xo, o1, o2, 3), ("unaligned", *shifted, 3),
+            ("1 copy", x, h1, h2, 1)]
+
+
+def check_probe(name, kern, ref, x, h1, h2, rounds, copies):
+    """Fails unless every copy of ``kern`` equals ``ref`` on one copy, bit
+    for bit; returns the max |error|."""
+    got = kern(x, h1, h2, rounds, copies)
+    want = ref(x, h1, h2, rounds)
+    return same_bits(name, got, want.expand_as(got))
+
+
 def phase_probes(dec, acs_ms: float, acs_start1: int):
     """Phase 4: the merge-family probes. Each kernel against its plain
-    version on the card, bit for bit, and both timed; then the probes'
-    entry points as a user runs them, with the launch counts set to 0 just
-    before and read just after. ``acs_ms`` is phase 1's ACS block step at
-    B=1 through decoder ``dec``, its window starting at padded row
-    ``acs_start1``: K1's rate in the probes' unit, in the ops the K-way
-    merge needs. Returns the kernels' JSON entries and the roofline."""
-    nc, f, ct = merge_roofline.NC, merge_roofline.F, merge_roofline.CT
+    version on the card, bit for bit, and both timed; merge and stream also
+    on ``probe_cases`` at 8 rounds and at 3 (the stream's generic kernel),
+    with their registers, local bytes and threads per SM (fails if the
+    merge kernel uses local memory); then the probes' entry points as a
+    user runs them, with the launch counts set to 0 just before and read
+    just after, which also measure the issue rate of each instruction kind
+    and each kernel's pipe floor from its SASS. ``acs_ms`` is phase 1's ACS
+    block step at B=1 through decoder ``dec``, its window starting at padded
+    row ``acs_start1``: K1's rate in the probes' unit, in the ops the K-way
+    merge needs. Returns the kernels' JSON entries, the roofline and the
+    probes' line."""
+    mr = merge_roofline
+    nc, f, ct = mr.NC, mr.F, mr.CT
     G, R = 256, 8
     rng = np.random.default_rng(SEED)
     x, h1, h2 = probe_inputs(rng, (nc, f, ct))
+    cases = probe_cases(rng, nc, f, ct)
     found = {}
     for kind in ("merge", "stream"):
-        kern = getattr(merge_roofline, kind)
-        ref = getattr(merge_roofline, f"{kind}_ref")
+        kern = getattr(mr, kind)
+        ref = getattr(mr, f"{kind}_ref")
 
         def plain(a, b, c):
             return ref(*(t.expand(G, *t.shape) for t in (a, b, c)), R)
@@ -676,12 +718,23 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
             got = kern(x, b, c, R, G)
             err = max(err, same_bits(f"{kind} ({what})", got, plain(x, b, c)))
             same_bits(f"{kind} copies ({what})", got, got[:1].expand_as(got))
+        for name, *args, copies in cases:
+            for rounds in (R, 3):
+                err = max(err, check_probe(f"{kind} {name} r={rounds}", kern,
+                                           ref, *args, rounds, copies))
         ms = cuda_ms(lambda: kern(x, h1, h2, R, G), reps=20, warmup=2)
         plain_ms = cuda_ms(lambda: plain(x, h1, h2), reps=3)
         log(f"phase 4: {kind} [{nc},{f},{ct}] x {G} copies, {R} rounds: "
-            f"bit-equal, all copies equal; kernel {ms:.4f} ms, plain "
+            f"bit-equal, all copies equal, and on {len(cases)} more inputs "
+            f"at {R} and 3 rounds; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
         found[kind] = (err, ms, plain_ms)
+
+    info = {"merge": mr.merge_info(), "stream": mr.stream_info(),
+            "stream_rounds_loop": mr.stream_info(unrolled=False)}
+    log(f"phase 4: kernel info: {json.dumps(info)}")
+    if info["merge"]["local_bytes"]:
+        fail(f"the merge kernel uses local memory: {info['merge']}")
 
     err = 0.0
     shape = (nc, f, treepop.CT)
@@ -725,6 +778,23 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
     if not all(launches.values()):
         fail(f"a probe kernel was not launched by its entry point: "
              f"{launches}")
+    rates = roof["issue_rates"]
+    floor_ms = {k: 1e3 * roof[k]["pipe_floor"]["floor_s"]
+                for k in ("merge", "stream")}
+    for k in ("merge", "stream"):
+        fl = roof[k]["pipe_floor"]
+        log(f"phase 4: {k} pipe floor {floor_ms[k]:.4f} ms by {fl['by']} "
+            f"({json.dumps(fl['terms_s'])}); the kernel's {found[k][1]:.4f} "
+            f"ms reaches {100 * floor_ms[k] / found[k][1]:.1f}% of it")
+    probes_line = {
+        "issue_rates_per_sm_clk": {k: r["per_sm_clk"]
+                                   for k, r in rates.items()},
+        "issue_bodies": {k: r["body"] for k, r in rates.items()},
+        "info": info,
+        **{f"{k}_pipe_floor": roof[k]["pipe_floor"]
+           for k in ("merge", "stream")},
+        **{f"{k}_share_of_pipe_floor": floor_ms[k] / found[k][1]
+           for k in ("merge", "stream")}}
 
     peak, formula = merge_roofline.lane_peak()
     spec, tabs = dec.spec, dec.tabs
@@ -778,8 +848,9 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no one PyTorch call computes a merge with dual-hash knockout,
             # the stream's op chain or a max with the winner's payload
-            "library_ms": None})
-    return entries, roofline
+            "library_ms": None,
+            **({"pipe_floor_ms": floor_ms[k]} if k in floor_ms else {})})
+    return entries, roofline, probes_line
 
 
 def graph_ms(fn) -> float:
@@ -1474,7 +1545,7 @@ def main() -> int:
         fail(f"{launches} kernel launches for {stats.steps} block steps")
 
     t0 = time.perf_counter()
-    probes, roofline = phase_probes(dec, acs_ms, acs_start1)
+    probes, roofline, probes_line = phase_probes(dec, acs_ms, acs_start1)
     log(f"phase 4: done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1496,6 +1567,7 @@ def main() -> int:
     log(json.dumps({"lva_acs": lva_line}))
     log(json.dumps({"lva_acs_lse": lse_line}))
     log(json.dumps({"roofline": roofline}))
+    log(json.dumps({"probes": probes_line}))
     log(json.dumps({"lowering": lowering_rates}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{

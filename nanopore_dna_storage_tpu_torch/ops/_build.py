@@ -136,6 +136,15 @@ def load_probes() -> ctypes.CDLL:
         for fn in (lib.probe_merge_launch, lib.probe_stream_launch):
             # x, h1, h2, out, then nc, ncol, rounds, copies and the stream
             fn.argtypes = [p] * 4 + [i] * 4 + [p]
+        # where registers, local bytes and threads per SM go (the stream's
+        # after whether its rounds are unrolled)
+        lib.probe_merge_info.argtypes = [ctypes.POINTER(i)]
+        lib.probe_stream_info.argtypes = [i, ctypes.POINTER(i)]
+        # kind, in, out, blocks, iterations and the stream
+        lib.probe_issue_launch.argtypes = [i, p, p, i, i, p]
+        for fn in (lib.probe_merge_launch, lib.probe_stream_launch,
+                   lib.probe_merge_info, lib.probe_stream_info,
+                   lib.probe_issue_launch):
             fn.restype = i
         # x, h, out, out_h, then nc, ncol, variant, guarded and the stream
         lib.probe_treepop_launch.argtypes = [p] * 4 + [i] * 4 + [p]

@@ -8,17 +8,21 @@ array shape [NC, F, CT]:
    element and round, the best case for that op count;
 2. ``merge``: the exact round of the production suppression merge (max,
    first argmax, the winner's two hashes, dual-hash knockout), its
-   dependency chain included, with the candidates kept per thread as the
-   ACS kernel keeps them.
+   dependency chain included, with a column's 64 candidates held in
+   registers over ``MERGE_LANES`` threads.
 
-Both rates are read against ``lane_peak()``, the card's FP32 lanes times
-its clock, as the TPU probe read its VPU peak. ``acs_work_ops``,
-``acs_executed_ops`` and ``acs_needed_ops`` count an ACS block step's
-work in the same unit: as ``bench.py`` counted it, as a flat scan over
-every candidate executes it, and as the K-way merge needs it;
-``acs_needed_bytes`` counts the bytes the K-way merge must move, and
-``acs_lse_needed`` the operations and exp/log calls of a logsumexp step. With
-``--write`` the result goes to ``docs/GPU_ROOFLINE.json``.
+Each rate has two shares. ``pct_of_lane_peak`` reads it against
+``lane_peak()``, the card's FP32 lanes times its clock, as the TPU probe
+read its VPU peak: every op counted at the FP32 rate. ``pct_of_pipe_floor``
+reads the kernel's time against ``pipe_floor``: its SASS instructions
+(``cuobjdump``) at the issue rate measured for each kind on the card
+(``issue_rates``), compares, selects and min / max on the ALU pipe.
+``acs_work_ops``, ``acs_executed_ops`` and ``acs_needed_ops`` count an ACS
+block step's work in the element-op unit: as ``bench.py`` counted it, as a
+flat scan over every candidate executes it, and as the K-way merge needs
+it; ``acs_needed_bytes`` counts the bytes the K-way merge must move, and
+``acs_lse_needed`` the operations and exp/log calls of a logsumexp step.
+With ``--write`` the result goes to ``docs/GPU_ROOFLINE.json``.
 
     python -m nanopore_dna_storage_tpu_torch.probes.merge_roofline \\
         [--rounds 8] [--grid 256] [--write]
@@ -26,13 +30,17 @@ every candidate executes it, and as the K-way merge needs it;
 from __future__ import annotations
 
 import argparse
+import collections
+import ctypes
 import json
 import pathlib
+import re
 import subprocess
 
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..ops._build import check_tensor, load_probes
 from ..ops.lva_acs import candidates
 from ..ops.lva_consts import NCRF, NQ_MAX, sel_format
@@ -45,14 +53,22 @@ NEG = float("-inf")
 # 1 = 12 sweeps; the stream does 12 elementwise ops per element and round
 MERGE_SWEEPS = 12
 STREAM_SWEEPS = 12
-# FP32 lanes of one Hopper SM (4 sub-partitions x 32). Its INT32 rate is
-# half that, 64 lanes per clock; the peak counts FP32 lanes, as the TPU
-# probe counted its VPU's lanes, whatever mix of ops the kernels run.
+# FP32 lanes of one Hopper SM (4 sub-partitions x 32). The lane peak counts
+# every op at this rate, as the TPU probe counted its VPU's lanes, whatever
+# mix of ops the kernels run: that is the bound (pct_of_lane_peak). The pipe
+# floor (pct_of_pipe_floor) counts each SASS instruction at its own kind's
+# measured rate instead: compares, selects and min / max issue on the ALU
+# pipe, 64 lanes an SM, half this.
 FP32_LANES_PER_SM = 128
+
+# the lanes a merge column is split over (csrc/probes.cu kMergeLanes); the
+# columns a stream thread runs, over 8 rounds unrolled (any other shape
+# runs the generic kernel)
+MERGE_LANES = 2
+STREAM_VEC, STREAM_ROUNDS = 2, 8
 
 # Kernel launches made through ``merge`` and ``stream`` (CUDA tensors only).
 LAUNCHES = {"merge": 0, "stream": 0}
-
 
 def merge_ref(x: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
               rounds: int) -> torch.Tensor:
@@ -129,8 +145,11 @@ def merge(x: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor, rounds: int,
     """``copies`` copies of the merge probe over one input: scores f32
     [NC, F, CT], hashes int32 [NC, F, CT] -> f32 [copies, F, CT], every copy
     the same. CPU tensors run ``merge_ref`` on the copies; CUDA tensors
-    launch the kernel of ``csrc/probes.cu``, which computes every copy and
-    writes each to its own slot; anything else raises."""
+    launch the kernel of ``csrc/probes.cu`` (a column's candidates in
+    registers over ``MERGE_LANES`` threads), which computes every copy and
+    writes each to its own slot; anything else raises. The scores are
+    finite or -inf: the kernel never picks a NaN, where ``merge_ref``'s
+    argmax would."""
     return _launch("merge", x, h1, h2, rounds, copies)
 
 
@@ -138,6 +157,241 @@ def stream(x: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor, rounds: int,
            copies: int = 1) -> torch.Tensor:
     """The stream probe, with the contract of ``merge``."""
     return _launch("stream", x, h1, h2, rounds, copies)
+
+
+def _info(fn, *args) -> dict:
+    out = (ctypes.c_int * 3)()
+    lib = load_probes()
+    err = getattr(lib, fn)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: "
+                           + lib.probe_error_string(err).decode())
+    return {"registers": out[0], "local_bytes": out[1],
+            "threads_per_sm": out[2]}
+
+
+def merge_info() -> dict:
+    """Registers, local memory in bytes (stack frame and spills) and
+    resident threads per SM (the occupancy calculator) of the merge kernel
+    on the current CUDA device."""
+    return _info("probe_merge_info")
+
+
+def stream_info(unrolled: bool = True) -> dict:
+    """``merge_info`` of the stream kernel: the one of ``STREAM_VEC``
+    columns a thread with its rounds unrolled, or the generic one."""
+    return _info("probe_stream_info", int(unrolled))
+
+
+# The issue-rate chains of csrc/probes.cu (``IssueKind``), each with the
+# SASS opcodes it times; fadd_fmnmx runs one FADD and one FMNMX a step, to
+# show whether the two pipes overlap.
+ISSUE_KINDS = {"fadd": ("FADD",), "fmnmx": ("FMNMX",),
+               "fsetp_fsel": ("FSETP", "FSEL"), "isetp_sel": ("ISETP", "SEL"),
+               "shfl": ("SHFL",), "iadd3": ("IADD3",), "lop3": ("LOP3",),
+               "imad": ("IMAD",), "fadd_fmnmx": ("FADD", "FMNMX")}
+# The pipes the floor sums each measured kind on (Hopper: FP32 arithmetic
+# and integer multiply-add on FMA; compares, selects, min / max, integer
+# adds and logic on ALU); a kind that was not measured counts only towards
+# the issue term, so the floor stays a lower bound.
+PIPES = {"fma": ("FADD", "IMAD"),
+         "alu": ("FMNMX", "FSETP", "FSEL", "ISETP", "SEL", "IADD3", "LOP3"),
+         "shfl": ("SHFL",)}
+_SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+# a branch's target: a label, or an address in the kernel
+_BRANCH = re.compile(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\s*$")
+
+
+def sass(lib_path) -> dict:
+    """``parse_sass`` of the library at ``lib_path`` (``cuobjdump
+    -sass``)."""
+    return parse_sass(subprocess.run(
+        [str(pathlib.Path(_build.nvcc()).with_name("cuobjdump")), "-sass",
+         str(lib_path)], capture_output=True, text=True, timeout=300,
+        check=True).stdout)
+
+
+def parse_sass(text: str) -> dict:
+    """The SASS of every kernel in ``cuobjdump -sass``'s ``text``: {mangled
+    name: [(opcode, branch target's instruction index or None), ...]}, the
+    opcode without its modifiers or predicate; a branch's target is a label
+    or an address, as the toolkit prints it."""
+    funcs = {}
+    for chunk in text.split("Function : ")[1:]:
+        name, body = chunk.split("\n", 1)
+        instrs, where, targets = [], {}, []
+        for line in body.splitlines():
+            line = line.strip()
+            if re.fullmatch(r"\.L_x_\d+:", line):
+                where[line[:-1]] = len(instrs)
+                continue
+            m = _SASS_LINE.match(line)
+            if not m:
+                continue
+            where[int(m.group(1), 16)] = len(instrs)
+            words = m.group(2).split()
+            if words[0].startswith("@"):
+                words = words[1:]
+            op = words[0].split(".")[0]
+            b = _BRANCH.search(m.group(2)) if op == "BRA" else None
+            instrs.append(op)
+            targets.append(None if b is None else b.group(1)
+                           or int(b.group(2), 16))
+        funcs[name.strip()] = [(op, where.get(t)) for op, t in
+                               zip(instrs, targets)]
+    return funcs
+
+
+def loops(instrs) -> list:
+    """The backward branches of one kernel's SASS as (first, last)
+    instruction indices of their bodies, innermost (shortest) first; the
+    self-branch that ends a kernel is not a loop."""
+    return sorted(((t, i) for i, (_, t) in enumerate(instrs)
+                   if t is not None and t < i), key=lambda b: b[1] - b[0])
+
+
+def counts(instrs, lo: int = 0, hi: int = None) -> collections.Counter:
+    """Opcode counts of ``instrs[lo:hi + 1]``."""
+    hi = len(instrs) - 1 if hi is None else hi
+    return collections.Counter(op for op, _ in instrs[lo:hi + 1])
+
+
+def dynamic_counts(instrs, trips: int) -> collections.Counter:
+    """The opcodes one thread issues when the kernel's one loop runs
+    ``trips`` times (predicated-off instructions included, as they issue).
+    Raises unless the kernel has exactly one loop."""
+    found = loops(instrs)
+    if len(found) != 1:
+        raise ValueError(f"expected one loop, found {len(found)}")
+    lo, hi = found[0]
+    body = counts(instrs, lo, hi)
+    total = counts(instrs)
+    return collections.Counter({op: total[op] + (trips - 1) * body[op]
+                                for op in total})
+
+
+def kernel_sass(funcs: dict, part: str):
+    """The one kernel whose mangled name contains ``part``."""
+    hits = [k for k in funcs if part in k]
+    if len(hits) != 1:
+        raise ValueError(f"{len(hits)} kernels match {part!r}: {hits}")
+    return funcs[hits[0]]
+
+
+STREAM_SASS_NAME = f"stream_kernelILi{STREAM_VEC}ELi{STREAM_ROUNDS}E"
+
+
+def _events_s(fn, reps: int) -> float:
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / 1e3 / reps
+
+
+def issue_rates(funcs: dict, iters: int = 512, reps: int = 5) -> dict:
+    """Each chain of ``ISSUE_KINDS`` timed on the card over 8 blocks of 128
+    threads an SM: {kind: {"per_s": instructions of its opcodes per second,
+    "per_sm_clk": the same per SM and maximum SM clock, "body": the loop
+    body's opcode counts, "ms": the time}}, the instructions counted from
+    the kernel's SASS loop body (``funcs``: ``sass`` of the library)."""
+    lib = load_probes()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, mhz = _peak_parts()
+    nblocks = 8 * sms
+    dev = torch.device("cuda")
+    src = torch.arange(1, 9, dtype=torch.float32, device=dev).view(
+        torch.int32)
+    out = torch.empty(nblocks * 128, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = [k for k in funcs if "issue_kernel" in k]
+    res = {}
+    for kind, (name, ops) in enumerate(ISSUE_KINDS.items()):
+        sel = [k for k in names if f"issue_kernelILi{kind}E" in k]
+        if len(sel) != 1:
+            raise ValueError(f"no one issue kernel {kind} in {names}")
+        lo, hi = loops(funcs[sel[0]])[0]
+        body = counts(funcs[sel[0]], lo, hi)
+
+        def run():
+            err = lib.probe_issue_launch(kind, src.data_ptr(),
+                                         out.data_ptr(), nblocks, iters,
+                                         stream)
+            if err != 0:
+                raise RuntimeError("probe issue launch failed: "
+                                   + lib.probe_error_string(err).decode())
+
+        dt = _events_s(run, reps)
+        n = sum(body[o] for o in ops) * iters * nblocks * 128
+        res[name] = {"per_s": n / dt, "per_sm_clk": n / dt / sms / mhz / 1e6,
+                     "body": dict(body), "ms": dt * 1e3}
+    return res
+
+
+def rate_table(rates: dict) -> dict:
+    """{opcode: instructions per second} from ``issue_rates``: each kind's
+    rate for its own opcodes (the fadd_fmnmx mix is left out)."""
+    return {op: r["per_s"] for kind, r in rates.items()
+            if kind != "fadd_fmnmx" for op in ISSUE_KINDS[kind]}
+
+
+def pipe_floor(mix: dict, threads: int, table: dict) -> dict:
+    """The least time ``threads`` threads issuing the per-thread opcode
+    counts ``mix`` can take at the measured rates ``table`` (opcode ->
+    instructions per second): the largest of each pipe's measured opcodes
+    summed at their rates (``PIPES``) and every instruction at the FADD
+    rate, one warp instruction a clock per scheduler. Returns the seconds,
+    each term and the term that bounds."""
+    terms = {p: sum(mix.get(o, 0) * threads / table[o] for o in ops
+                    if o in table) for p, ops in PIPES.items()}
+    terms["issue"] = sum(mix.values()) * threads / table["FADD"]
+    by = max(terms, key=terms.get)
+    return {"floor_s": terms[by], "by": by, "terms_s": terms}
+
+
+def merge_floor(funcs, table, rounds, copies, ncol) -> dict:
+    """``pipe_floor`` of the merge kernel at ``copies`` x ``ncol`` columns
+    and ``rounds`` rounds, with its SASS mix per column and round."""
+    instrs = kernel_sass(funcs, "merge_kernel")
+    lo, hi = loops(instrs)[0]
+    mix = dynamic_counts(instrs, rounds)
+    per_round = {o: n * MERGE_LANES for o, n in
+                 counts(instrs, lo, hi).items()}
+    return {**pipe_floor(mix, copies * ncol * MERGE_LANES, table),
+            "per_column_round": per_round}
+
+
+def stream_floor(funcs, table, nc, copies, ncol) -> dict:
+    """``pipe_floor`` of the stream kernel (its rounds unrolled) at
+    ``copies`` x ``ncol`` columns of ``nc`` elements, with its SASS mix per
+    element and round."""
+    instrs = kernel_sass(funcs, STREAM_SASS_NAME)
+    lo, hi = loops(instrs)[0]
+    mix = dynamic_counts(instrs, nc)
+    per = STREAM_VEC * STREAM_ROUNDS
+    return {**pipe_floor(mix, copies * ncol // STREAM_VEC, table),
+            "per_element_round": {o: n / per for o, n in
+                                  counts(instrs, lo, hi).items()}}
+
+
+def stream_mix(funcs) -> dict:
+    """The SASS mix per element and round of a library's stream kernel,
+    also for a tree whose kernel is not this one's (its one
+    ``stream_kernel``): of the loops that hold no other loop, the one with
+    the most FADDs, scaled by them (4 an element and round)."""
+    instrs = kernel_sass(funcs, "stream_kernel" if sum(
+        "stream_kernel" in k for k in funcs) == 1 else STREAM_SASS_NAME)
+    found = loops(instrs)
+    inner = [(lo, hi) for lo, hi in found
+             if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                        for a, b in found)]
+    body = max((counts(instrs, lo, hi) for lo, hi in inner),
+               key=lambda c: c["FADD"])
+    return {o: 4 * n / body["FADD"] for o, n in body.items()}
 
 
 def acs_work_ops(spec, nreads: int) -> int:
@@ -319,25 +573,30 @@ def acs_lse_needed(tabs, prev, out, sel, stay_tr, move_tr, start1,
     return ops, exp, log
 
 
-def lane_peak(device: int = 0):
-    """(element-ops per second, formula) of the card's FP32 lanes: SMs x
-    ``FP32_LANES_PER_SM`` x the maximum SM clock that ``nvidia-smi``
-    reports."""
+def _peak_parts(device: int = 0):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     res = subprocess.run(
         ["nvidia-smi", "-i", str(device), "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True)
-    mhz = float(res.stdout.strip())
-    return (sms * FP32_LANES_PER_SM * mhz * 1e6,
-            f"{sms} SMs x {FP32_LANES_PER_SM} FP32 lanes x {mhz:g} MHz "
-            f"max SM clock")
+    return sms, FP32_LANES_PER_SM, float(res.stdout.strip())
 
 
-def run(kind: str, rounds: int, grid: int, reps: int = 5) -> dict:
+def lane_peak(device: int = 0):
+    """(element-ops per second, formula) of the card's FP32 lanes: SMs x
+    ``FP32_LANES_PER_SM`` x the maximum SM clock that ``nvidia-smi``
+    reports."""
+    sms, lanes, mhz = _peak_parts(device)
+    return (sms * lanes * mhz * 1e6,
+            f"{sms} SMs x {lanes} FP32 lanes x {mhz:g} MHz max SM clock")
+
+
+def run(kind: str, rounds: int, grid: int, floor_s: float,
+        reps: int = 5) -> dict:
     """Time ``grid`` copies of one probe kernel at [NC, F, CT] on the CUDA
     card (the fastest of ``reps`` launches, by CUDA events) and return its
-    element-op rate and share of the lane peak."""
+    element-op rate, its share of the lane peak and its share of the
+    kernel's pipe floor ``floor_s``."""
     if not torch.cuda.is_available():
         raise RuntimeError("the roofline probe needs a CUDA device")
     rng = np.random.default_rng(0)
@@ -364,7 +623,19 @@ def run(kind: str, rounds: int, grid: int, reps: int = 5) -> dict:
     return {"kind": kind, "rounds": rounds, "grid": grid,
             "kernel_s": dt, "elem_ops_T": elem_ops / 1e12,
             "ops_per_s_T": rate / 1e12,
-            "pct_of_lane_peak": 100 * rate / peak}
+            "pct_of_lane_peak": 100 * rate / peak,
+            "pct_of_pipe_floor": 100 * floor_s / dt}
+
+
+def floors(rounds: int, grid: int) -> dict:
+    """The issue rates of ``issue_rates`` and the pipe floors of the
+    production merge and stream kernels at [NC, F, CT] x ``grid`` copies."""
+    funcs = sass(_build.build("probes", ["probes.cu"]))
+    rates = issue_rates(funcs)
+    table = rate_table(rates)
+    return {"issue_rates": rates,
+            "merge": merge_floor(funcs, table, rounds, grid, F * CT),
+            "stream": stream_floor(funcs, table, NC, grid, F * CT)}
 
 
 def main(argv=None) -> dict:
@@ -382,15 +653,23 @@ def main(argv=None) -> dict:
            "lane_peak_ops_per_s_T": peak / 1e12,
            "lane_peak_formula": formula,
            "note": "pct_of_lane_peak = measured element-ops/s vs the FP32 "
-                   "lane peak; 'stream' = independent elementwise sweeps "
-                   "(best case for this shape), 'merge' = the exact "
-                   "production suppression-merge round (serial reductions "
-                   "+ knockout), candidates per thread as the ACS kernel "
-                   "keeps them"}
+                   "lane peak; pct_of_pipe_floor = the kernel's floor from "
+                   "its SASS at the issue rates measured per kind vs its "
+                   "time; 'stream' = independent elementwise sweeps (best "
+                   "case for this shape), 'merge' = the exact production "
+                   "suppression-merge round (serial reductions + "
+                   "knockout), candidates in registers over "
+                   f"{MERGE_LANES} lanes a column"}
     print(json.dumps({"lane_peak_ops_per_s_T": peak / 1e12,
                       "lane_peak_formula": formula}), flush=True)
+    fl = floors(args.rounds, args.grid)
+    out["issue_rates"] = fl["issue_rates"]
+    print(json.dumps({"issue_rates_per_sm_clk": {
+        k: r["per_sm_clk"] for k, r in fl["issue_rates"].items()}}),
+        flush=True)
     for kind in ("stream", "merge"):
-        r = run(kind, args.rounds, args.grid)
+        r = run(kind, args.rounds, args.grid, fl[kind]["floor_s"])
+        r["pipe_floor"] = fl[kind]
         out[kind] = r
         print(json.dumps(r), flush=True)
     if args.write:

@@ -1,5 +1,5 @@
-"""The logsumexp ACS step and the reshape copy of several trees of this
-repository, timed in turns on one CUDA card.
+"""The logsumexp ACS step, the reshape copy and the merge and stream probes
+of several trees of this repository, timed in turns on one CUDA card.
 
     python -m nanopore_dna_storage_tpu_torch.probes.turns \\
         --roots build/parent . . build/parent
@@ -8,9 +8,12 @@ For each root in order this runs one process with that root on
 ``PYTHONPATH``, so that it imports, builds and launches that root's kernels
 through APIs every tree since the lse kernel was ported shares
 (``LVADecoder``, ``acs_block_lse``, ``lse_kernel_info``; ``reshape``,
-``graph_us``), and prints one JSON line; then this prints every root's
-numbers side by side. Two trees compare only inside one run: the order
-parent, this, this, parent spreads the card's drift over both.
+``graph_us``; ``merge_roofline.merge``, ``stream`` and their plain
+versions), and prints one JSON line; then this prints every root's numbers
+side by side, and each root's stream kernel's SASS mix per element and
+round (this tree's ``merge_roofline.stream_mix`` on the library that root
+built). Two trees compare only inside one run: the order parent, this,
+this, parent spreads the card's drift over both.
 
 Points, each output held bit-equal to its plain version before it is
 timed:
@@ -25,7 +28,10 @@ timed:
 * the reshape copy (``lowering.reshape``) at the script's [8, 8, 1024]
   from CUDA graphs (``graph_us``) and at ``RESHAPE_LARGE`` by CUDA events
   over ``REPS`` calls after ``WARMUP``, each beside ``clone`` of the same
-  tensor.
+  tensor;
+* the merge and stream probes at [64, 8, 512] x 256 copies and 8 rounds,
+  every copy held bit-equal to the plain version of one, then ``REPS``
+  calls after ``WARMUP`` by CUDA events, ``REPEATS`` times.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ LAUNCHES, REPEATS = 50, 3
 WARMUP, REPS = 2, 20
 RESHAPE_SMALL = (8, 8, 1024)
 RESHAPE_LARGE = (8, 8, 1 << 20)
+# the merge and stream probes: rounds and copies
+PROBE_ROUNDS, PROBE_COPIES = 8, 256
 
 
 def _events_ms(torch, fn, warmup: int, reps: int) -> float:
@@ -152,12 +160,41 @@ def reshape_points(torch) -> dict:
     return out
 
 
+def probe_points(torch, seed: int) -> dict:
+    """The merge and stream probes' times (ms a call), after every copy is
+    held bit-equal to the plain version, and the library they came from."""
+    import numpy as np
+
+    from nanopore_dna_storage_tpu_torch.ops import _build
+    from nanopore_dna_storage_tpu_torch.probes import merge_roofline as mr
+
+    rng = np.random.default_rng(seed)
+    shape = (mr.NC, mr.F, mr.CT)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+    h1, h2 = (torch.from_numpy(rng.integers(0, 1 << 30, shape, dtype=np.int64)
+                               .astype(np.int32)).cuda() for _ in range(2))
+    out = {}
+    for kind in ("merge", "stream"):
+        fn, ref = getattr(mr, kind), getattr(mr, f"{kind}_ref")
+        got = fn(x, h1, h2, PROBE_ROUNDS, PROBE_COPIES)
+        want = ref(x, h1, h2, PROBE_ROUNDS).expand_as(got)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise SystemExit(f"turns: the {kind} probe differs from its "
+                             f"plain version")
+        out[f"{kind}_ms"] = [_events_ms(torch, lambda: fn(
+            x, h1, h2, PROBE_ROUNDS, PROBE_COPIES), WARMUP, REPS)
+            for _ in range(REPEATS)]
+    out["probes_lib"] = str(_build.build("probes", ["probes.cu"]))
+    return out
+
+
 def measure(reads: int, seed: int) -> dict:
     """This process's tree: every point's times, ms."""
     import torch
 
     return {"gpu": torch.cuda.get_device_name(0),
-            **reshape_points(torch), **lse_points(torch, reads, seed)}
+            **reshape_points(torch), **lse_points(torch, reads, seed),
+            **probe_points(torch, seed)}
 
 
 def main(argv=None) -> int:
@@ -201,6 +238,10 @@ def main(argv=None) -> int:
         print(f"{k:18s} " + "  ".join(cells))
     print(f"{'lse_L8':18s} " + "  ".join(json.dumps(r["lse_L8"])
                                            for _, r in rows))
+    from nanopore_dna_storage_tpu_torch.probes import merge_roofline
+    for root, r in rows:
+        mix = merge_roofline.stream_mix(merge_roofline.sass(r["probes_lib"]))
+        print(json.dumps({"root": root, "stream_sass_per_element_round": mix}))
     return 0
 
 
