@@ -28,12 +28,18 @@ Phases, each fatal on failure:
    must recover the file byte for byte, with one kernel launch per forward
    block step;
 4. the merge-family probes (``probes/merge_roofline.py``,
-   ``probes/treepop.py``): merge and stream bit-equal to their plain
-   versions at [64, 8, 512] with 256 copies and 8 rounds, every copy's
-   slot equal; each tree-pop variant and the guarded tree bit-equal; each
-   kernel and plain version timed; then the probes' entry points; the
-   roofline line sets their rates beside the ACS kernel's (phase 1, one
-   read) in the operations it needs;
+   ``probes/treepop.py``): the launch floor (an empty kernel in a CUDA
+   graph); merge and stream bit-equal to their plain versions at [64, 8,
+   512] with 256 copies and 8 rounds, every copy's slot equal; each
+   tree-pop variant at every lane count built and at its default bit-equal
+   on normal, tie, all -inf and +0.0 / -0.0 scores, at nc 1, 33, 60 and 63
+   and at [64, 8, 32768], the guarded tree with the guard holding and
+   failing at CT 128, 512 and 32768; fails if the merge kernel or any
+   tree-pop kernel uses local memory; each kernel and plain version timed
+   (the tree pop from CUDA graphs, and at [64, 8, 32768] by CUDA events
+   against its bytes bound, at every lane count); then the probes' entry
+   points; the roofline line sets their rates beside the ACS kernel's
+   (phase 1, one read) in the operations it needs;
 5. the expansion-family probes (``probes/expand.py``,
    ``probes/mxu_expand.py``): every lane-map form (gather, shfl,
    butterfly), the transpose and every one-hot product mode (tf32, bf16,
@@ -55,8 +61,11 @@ Phases, each fatal on failure:
    through ``lane_map``, dynrow, int16, fori in both placements, reshape,
    alias) bit-equal to its plain version and to the numpy result at the
    script's shapes, fori also at the ACS kernel's merge shape (NQ = 64,
-   R = 8) and over 256 copies, at one thread per item and at 128 threads
-   per SM; alias returning its own buffer with every row outside a random
+   R = 8), on tie scores with -inf columns and over 256 copies, at one
+   thread (regs: one group of lanes) per item and at 128 threads per SM,
+   regs at every lane count built and its default, and fails if a regs
+   kernel uses local memory; fori regs timed at every lane count; alias
+   returning its own buffer with every row outside a random
    window unchanged; dynrow and alias at indices and windows outside
    [0, P), reading and writing nothing outside the buffer; each kernel,
    plain version and library call timed; P7's plain version and library
@@ -78,14 +87,16 @@ Phases, each fatal on failure:
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
-card's peak for their type (``bound``).
+card's peak for their type (``bound``); the P1 and P8 entries have the
+launch floor beside it (``launch_floor_ms``).
 
 Before the last lines come ``{"lva_acs": {...}}`` (the ACS kernel's
 times at B=1 and B=4, its registers, local bytes and resident threads
 per SM, its bound and its share of it), ``{"lva_acs_lse": {...}}`` (the
 same for the logsumexp kernel, its bound's three terms and the lse path's
 s/read), ``{"roofline": {...}}``,
-``{"lowering": {...}}`` (the fori rates and P7's times), the card's name
+``{"lowering": {...}}`` (the launch floor, the fori rates, kernel info
+and times by lane count, and P7's times), the card's name
 and power limit, and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
@@ -160,6 +171,9 @@ TRANSPOSE_SHAPES = (((16, 128), True), ((128, 16), True), ((17, 45), True),
                     ((33, 100), True), ((1, 1), True), ((8, 64), True),
                     ((4, 4), True), ((6, 30), True), ((13, 50), True),
                     ((16, 128), False))
+# phase 4: the tree pop's CT past launch latency: [64, 8, 32768], 128 MiB
+# of inputs
+TREEPOP_LARGE = 32768
 # phase 5: copies of the lane map's [8, 2048] and the transpose's [16, 128]
 # timed past launch latency (calls timed, after 2 warm-ups): both write
 # 268 MB
@@ -686,7 +700,7 @@ def check_probe(name, kern, ref, x, h1, h2, rounds, copies):
     return same_bits(name, got, want.expand_as(got))
 
 
-def phase_probes(dec, acs_ms: float, acs_start1: int):
+def phase_probes(dec, acs_ms: float, acs_start1: int, floor_us: float):
     """Phase 4: the merge-family probes. Each kernel against its plain
     version on the card, bit for bit, and both timed; merge and stream also
     on ``probe_cases`` at 8 rounds and at 3 (the stream's generic kernel),
@@ -694,11 +708,12 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
     merge kernel uses local memory); then the probes' entry points as a
     user runs them, with the launch counts set to 0 just before and read
     just after, which also measure the issue rate of each instruction kind
-    and each kernel's pipe floor from its SASS. ``acs_ms`` is phase 1's ACS
-    block step at B=1 through decoder ``dec``, its window starting at padded
-    row ``acs_start1``: K1's rate in the probes' unit, in the ops the K-way
-    merge needs. Returns the kernels' JSON entries, the roofline and the
-    probes' line."""
+    and each kernel's pipe floor from its SASS. The tree pop is checked and
+    timed by ``phase_treepop``. ``acs_ms`` is phase 1's ACS block step at
+    B=1 through decoder ``dec``, its window starting at padded row
+    ``acs_start1``: K1's rate in the probes' unit, in the ops the K-way
+    merge needs; ``floor_us`` is the launch floor (``launch_floor_us``).
+    Returns the kernels' JSON entries, the roofline and the probes' line."""
     mr = merge_roofline
     nc, f, ct = mr.NC, mr.F, mr.CT
     G, R = 256, 8
@@ -736,33 +751,9 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
     if info["merge"]["local_bytes"]:
         fail(f"the merge kernel uses local memory: {info['merge']}")
 
-    err = 0.0
-    shape = (nc, f, treepop.CT)
-    for variant in treepop.VARIANTS:
-        for scores in ("normal", "ties"):
-            a, h, _ = probe_inputs(rng, shape, scores, "perm")
-            for got, want in zip(treepop.treepop(a, h, variant),
-                                 treepop.treepop_ref(a, h, variant)):
-                err = max(err, same_bits(f"treepop {variant} {scores}", got,
-                                         want))
-    for c in (128, 512):
-        a, h, _ = probe_inputs(rng, (nc, f, c), hashes="perm")
-        for guard_holds in (True, False):
-            if not guard_holds:
-                a[0, 0, 0] = 2e9
-            for got, want in zip(
-                    treepop.treepop(a, h, "reshape_pair", guarded=True),
-                    treepop.treepop_ref(a, h, "reshape_pair", guarded=True)):
-                err = max(err, same_bits(f"treepop when ct={c}", got, want))
-    a, h, _ = probe_inputs(rng, shape, hashes="perm")
-    ms = cuda_ms(lambda: treepop.treepop(a, h, "reshape_pair"), reps=50,
-                 warmup=3)
-    plain_ms = cuda_ms(lambda: treepop.treepop_ref(a, h, "reshape_pair"),
-                       reps=10)
-    log(f"phase 4: treepop {len(treepop.VARIANTS)} variants x 2 score "
-        f"kinds, guarded ct 128 and 512 bit-equal; reshape_pair at "
-        f"{list(shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    found["treepop"] = (err, ms, plain_ms)
+    tree, tree_info = phase_treepop(rng, f)
+    info["treepop"] = tree_info
+    found["treepop"] = (tree["err"], tree["ms"], tree["plain_ms"])
 
     torch.cuda.synchronize()
     for k in merge_roofline.LAUNCHES:
@@ -834,9 +825,7 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
     work = {k: (G * R * merge_roofline.MERGE_SWEEPS * nc * cols,
                 3 * 4 * nc * cols + 4 * G * cols)
             for k in ("merge", "stream")}
-    tcols = shape[1] * shape[2]
-    work["treepop"] = ((shape[0] - 1) * 3 * tcols,
-                       8 * shape[0] * tcols + 8 * tcols)
+    work["treepop"] = treepop_work((nc, f, treepop.CT))
     entries = []
     for k, (err, ms, plain_ms) in found.items():
         ops, nbytes = work[k]
@@ -849,8 +838,145 @@ def phase_probes(dec, acs_ms: float, acs_start1: int):
             # no one PyTorch call computes a merge with dual-hash knockout,
             # the stream's op chain or a max with the winner's payload
             "library_ms": None,
-            **({"pipe_floor_ms": floor_ms[k]} if k in floor_ms else {})})
+            **({"pipe_floor_ms": floor_ms[k]} if k in floor_ms else
+               {"launch_floor_ms": floor_us / 1e3,
+                **{k2: v for k2, v in tree.items()
+                   if k2 not in ("err", "ms", "plain_ms")}})})
     return entries, roofline, probes_line
+
+
+def treepop_work(shape):
+    """(ops, bytes) of one tree pop over [NC, F, CT]: 63 pair steps (a
+    compare, two selects) per column; scores and payloads read once, one of
+    each written per column."""
+    cols = shape[1] * shape[2]
+    return (shape[0] - 1) * 3 * cols, 8 * shape[0] * cols + 8 * cols
+
+
+def treepop_inputs(rng, shape, kind):
+    """Scores f32 of ``kind`` and unique int32 payloads (a permutation) of
+    ``shape`` on the card: ``normal``; ``ties``, integers in {0, 1, 2} with
+    some columns all -inf; ``neg_inf``, every column all -inf but one
+    candidate in every other column; ``zeros``, +0.0 against -0.0 at the
+    top, -1 and -inf below."""
+    if kind == "normal":
+        x = rng.normal(size=shape).astype(np.float32)
+    elif kind == "ties":
+        x = rng.integers(0, 3, shape).astype(np.float32)
+        x[:, 0, :4] = -np.inf
+    elif kind == "neg_inf":
+        x = np.full(shape, -np.inf, np.float32)
+        x[rng.integers(0, shape[0], shape[1:]), np.arange(shape[1])[:, None],
+          np.arange(shape[2])] = 1.0
+        x[:, :, ::2] = -np.inf
+    else:
+        x = rng.choice(np.array([0.0, -0.0, -1.0, -np.inf], np.float32),
+                       shape, p=[0.1, 0.1, 0.5, 0.3])
+    h = rng.permutation(x.size).astype(np.int32).reshape(shape)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(h).cuda()
+
+
+def check_treepop(name, a, h, variant, lanes, guarded=False) -> float:
+    """Fails unless the tree pop at ``lanes`` equals ``treepop_ref`` bit for
+    bit. The argmax variant's plain value is a max, which leaves the sign of
+    a zero maximum to the implementation: its value is held to the first
+    maximum's bits and to the plain value as a number (+0.0 == -0.0)."""
+    got = treepop.treepop(a, h, variant, guarded, lanes)
+    want = treepop.treepop_ref(a, h, variant, guarded)
+    same_bits(f"{name} payload", got[1], want[1])
+    if variant != "argmax" or guarded or not bool((want[0] == 0).any()):
+        return same_bits(name, got[0], want[0])
+    if not torch.equal(got[0], want[0]):
+        fail(f"{name}: value differs from the plain version's")
+    first = a.gather(0, a.argmax(0, keepdim=True))[0]
+    return same_bits(f"{name} against the first maximum", got[0], first)
+
+
+def phase_treepop(rng, f: int):
+    """Phase 4, the tree pop: every variant at every lane count built and
+    at the default (``auto_lanes``) bit-equal to ``treepop_ref`` at [64, F,
+    CT] on normal, tie, all -inf and +0.0 / -0.0 scores with unique
+    payloads, at nc 1, 33, 60 and 63 on ties, and at ``TREEPOP_LARGE``; the
+    guarded form with the guard holding and failing at CT 128, 512 and
+    ``TREEPOP_LARGE``; every kernel's registers, local bytes and threads
+    per SM (fails on local memory). Then reshape_pair at the probe's shape
+    per call from CUDA graphs, and at ``TREEPOP_LARGE`` by CUDA events, at
+    every lane count and the default. Returns the kernels-line fields and
+    the kernel info."""
+    nc, ct = treepop.NC, treepop.CT
+    lanes_all = (0, *treepop.LANES)
+    err = 0.0
+    for kind in ("normal", "ties", "neg_inf", "zeros"):
+        a, h = treepop_inputs(rng, (nc, f, ct), kind)
+        for variant in treepop.VARIANTS:
+            for g in lanes_all:
+                err = max(err, check_treepop(
+                    f"treepop {variant} {kind} at {g} lanes", a, h, variant,
+                    g))
+    a, h = treepop_inputs(rng, (nc, f, ct), "ties")
+    for n in (1, 33, 60, 63):
+        for variant in treepop.VARIANTS:
+            for g in lanes_all:
+                check_treepop(f"treepop {variant} nc={n} at {g} lanes",
+                              a[:n].contiguous(), h[:n].contiguous(),
+                              variant, g)
+    large = (nc, f, TREEPOP_LARGE)
+    for c in (128, 512, TREEPOP_LARGE):
+        a, h = treepop_inputs(rng, (nc, f, c), "normal")
+        for holds in (True, False):
+            if not holds:
+                a[0, 0, 0] = 2e9
+            for g in lanes_all:
+                err = max(err, check_treepop(
+                    f"treepop when ct={c} {'holds' if holds else 'fails'} at "
+                    f"{g} lanes", a, h, "reshape_pair", g, guarded=True))
+    a, h = treepop_inputs(rng, large, "ties")
+    for variant in treepop.VARIANTS:
+        check_treepop(f"treepop {variant} at {list(large)}", a, h, variant,
+                      0)
+    info = {v: {g: treepop.treepop_info(v, g) for g in treepop.LANES}
+            for v in treepop.VARIANTS}
+    log(f"phase 4: treepop kernel info: {json.dumps(info)}")
+    bad = {(v, g): i for v, by in info.items() for g, i in by.items()
+           if i["local_bytes"]}
+    if bad:
+        fail(f"a tree-pop kernel uses local memory: {bad}")
+    log(f"phase 4: treepop {len(treepop.VARIANTS)} variants at lanes "
+        f"{lanes_all} bit-equal on normal, tie, all -inf and +0.0 / -0.0 "
+        f"scores, at nc 1, 33, 60, 63 and at {list(large)}; guarded at ct "
+        f"128, 512 and {TREEPOP_LARGE}, the guard holding and failing")
+
+    small = (nc, f, ct)
+    a, h = treepop_inputs(rng, small, "normal")
+    times = {g: graph_ms(lambda: treepop.treepop(a, h, "reshape_pair",
+                                                 lanes=g))
+             for g in lanes_all}
+    plain_ms = graph_ms(lambda: treepop.treepop_ref(a, h, "reshape_pair"))
+    a, h = treepop_inputs(rng, large, "normal")
+    err_large = max(check_treepop(f"treepop reshape_pair at {list(large)} "
+                                  f"at {g} lanes", a, h, "reshape_pair", g)
+                    for g in lanes_all)
+    large_times = {g: cuda_ms(lambda: treepop.treepop(
+        a, h, "reshape_pair", lanes=g), reps=COPIES_REPS, warmup=2)
+        for g in lanes_all}
+    ops, nbytes = treepop_work(large)
+    large_bound = bound(nbytes, ops, merge_roofline.lane_peak()[0])[0]
+    auto = (treepop.auto_lanes(f * ct), treepop.auto_lanes(f * TREEPOP_LARGE))
+    log(f"phase 4: treepop reshape_pair at {list(small)} (CUDA graphs), ms "
+        f"by lanes (0: the default, {auto[0]}): {json.dumps(times)}, plain "
+        f"{plain_ms:.6f} ms; at {list(large)} (events, {COPIES_REPS} calls "
+        f"after 2), ms by lanes (0: {auto[1]}): {json.dumps(large_times)}, "
+        f"bound {large_bound:.5f} ms by bytes ({nbytes} B)")
+    del a, h
+    torch.cuda.empty_cache()
+    return {"err": err, "ms": times[0], "plain_ms": plain_ms,
+            "lanes": auto[0], "ms_by_lanes": times,
+            "large_shape": list(large), "large_bytes": nbytes,
+            "large_max_abs_err": err_large, "large_lanes": auto[1],
+            "large_ms": large_times[0],
+            "large_ms_by_lanes": large_times,
+            "large_bound_ms": large_bound,
+            "large_share_of_bound": large_bound / large_times[0]}, info
 
 
 def graph_ms(fn) -> float:
@@ -1226,7 +1352,57 @@ def lowering_library(case, ts):
     return None
 
 
-def phase_lowering(peak: float):
+def check_fori(name, ts, placement) -> None:
+    """Fails unless fori in ``placement`` on inputs ``ts`` (x, h) equals
+    ``fori_ref`` bit for bit, also on integer tie scores with -inf columns,
+    at one copy and over ``FORI_COPIES`` copies at one thread (regs: its
+    lanes) per item and at 128 threads per SM; regs at every lane count
+    built and at its default."""
+    lo = lowering
+    x, h = ts
+    rounds = dict(lo.FORI_POINTS)[x.shape[0]]
+    ties = torch.randint(0, 3, x.shape, generator=torch.Generator(
+        "cuda").manual_seed(SEED), device="cuda").float()
+    ties[:, :8] = -np.inf
+    ties[5:, 8:16] = -np.inf
+    lanes = (0, *lo.LANES) if placement == "regs" else (0,)
+    for scores, what in ((x, "scores"), (ties, "ties")):
+        want = lo.fori_ref(scores, h, rounds)
+        for g in lanes:
+            for copies, per_sm in ((1, 0), (lo.FORI_COPIES, 0),
+                                   (lo.FORI_COPIES, 128)):
+                got = lo.fori(scores, h, rounds, placement, copies, per_sm,
+                              g)
+                same_bits(f"{name} [{placement}] {what} at {g} lanes x "
+                          f"{copies} copies at {per_sm or 'all'} "
+                          f"threads/SM", got, want.expand_as(got))
+
+
+def fori_lane_times() -> dict:
+    """fori regs at every lane count built and the default: ms per call at
+    both ``FORI_POINTS`` from CUDA graphs, and over ``FORI_COPIES`` copies
+    by CUDA events (``COPIES_REPS`` calls after 2)."""
+    lo = lowering
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for nq, rounds in lo.FORI_POINTS:
+        x = torch.from_numpy(rng.standard_normal((nq, 1024)).astype(
+            np.float32)).cuda()
+        h = torch.full((nq, 1024), 3, dtype=torch.int32, device="cuda")
+        for g in (0, *lo.LANES):
+            out[f"{nq}x{rounds}_lanes{g}_ms"] = graph_ms(
+                lambda: lo.fori(x, h, rounds, "regs", lanes=g))
+            out[f"{nq}x{rounds}_copies_lanes{g}_ms"] = cuda_ms(
+                lambda: lo.fori(x, h, rounds, "regs", lo.FORI_COPIES,
+                                lanes=g), reps=COPIES_REPS, warmup=2)
+    out["default_lanes"] = {"1024": lo.auto_lanes(1024),
+                            str(1024 * lo.FORI_COPIES):
+                            lo.auto_lanes(1024 * lo.FORI_COPIES)}
+    log(f"phase 6: fori regs by lanes (0: the default): {json.dumps(out)}")
+    return out
+
+
+def phase_lowering(peak: float, floor_us: float):
     """Phase 6: the lowering probes. Every P1 kernel against its plain
     version and the numpy result on the card, bit for bit, at the script's
     shapes, fori also at the ACS kernel's merge shape and over 256 copies,
@@ -1235,8 +1411,9 @@ def phase_lowering(peak: float):
     alias and dynrow; each kernel, plain version and library call timed;
     P7's plain version and library call at its shape; then the entry point,
     with the launch counts set to 0 before and read after, and its fori
-    rates. ``peak`` is the FP32 lane peak. Returns the kernels' JSON entries
-    and the rates and times for the ``lowering`` line."""
+    rates. ``peak`` is the FP32 lane peak, ``floor_us`` the launch floor.
+    Returns the kernels' JSON entries and the rates and times for the
+    ``lowering`` line."""
     lo = lowering
     G = lo.FORI_COPIES
     err = {}
@@ -1251,15 +1428,21 @@ def phase_lowering(peak: float):
                 f"{case.name} [{form}]", got, plain()))
             same_bits(f"{case.name} [{form}] against numpy", got.cpu(), want)
             if form in lo.PLACEMENTS:
-                rounds = dict(lo.FORI_POINTS)[ts[0].shape[0]]
-                for per_sm in (0, 128):
-                    many = lo.fori(*ts, rounds, form, G, per_sm)
-                    same_bits(f"{case.name} [{form}] x {G} copies at "
-                              f"{per_sm or 'all'} threads/SM", many,
-                              plain().expand_as(many))
+                check_fori(case.name, ts, form)
+    fori_info = {f"{nq}": {"local": lo.fori_info("local", nq),
+                           **{f"regs_{g}": lo.fori_info("regs", nq, g)
+                              for g in lo.LANES}}
+                 for nq, _ in lo.FORI_POINTS}
+    log(f"phase 6: fori kernel info: {json.dumps(fori_info)}")
+    bad = {(nq, k): i for nq, by in fori_info.items() for k, i in by.items()
+           if k != "local" and i["local_bytes"]}
+    if bad:
+        fail(f"a fori regs kernel uses local memory: {bad}")
     log(f"phase 6: {len(lo.CASES)} lowering cases, every kernel bit-equal "
         f"to its plain version and to numpy; fori over {G} copies too, at "
-        f"one thread per item and at 128 threads/SM")
+        f"one thread per item and at 128 threads/SM, regs at lanes "
+        f"{(0, *lo.LANES)} on the script's scores and on ties with -inf "
+        f"columns")
 
     rng = np.random.default_rng(SEED)
     P, C, W = 16, 256, lo.ALIAS_WINDOW
@@ -1296,6 +1479,7 @@ def phase_lowering(peak: float):
         "random window, skips window rows outside [0, P); dynrow clamps its "
         "index; neither touches the NaN rows around its buffer")
     large = phase_reshape_large(rng)
+    lanes_ms = fori_lane_times()
 
     timed = {}
     for case in lo.CASES:
@@ -1365,10 +1549,13 @@ def phase_lowering(peak: float):
         "max_abs_err": err[k], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         # int16, fori and alias take several PyTorch calls each
-        "library_ms": lib_ms, **(large if k == "reshape" else {})}
+        "library_ms": lib_ms, "launch_floor_ms": floor_us / 1e3,
+        **(large if k == "reshape" else {})}
         for k, (ms, plain_ms, lib_ms, bound_ms, bound_by, replaces)
         in timed.items()]
-    return entries, {"fori_rates": rates, "p7": p7, "reshape_large": large}
+    return entries, {"launch_floor_us": floor_us, "fori_rates": rates,
+                     "fori_info": fori_info, "fori_regs_by_lanes": lanes_ms,
+                     "p7": p7, "reshape_large": large}
 
 
 def phase_reshape_large(rng) -> dict:
@@ -1545,7 +1732,11 @@ def main() -> int:
         fail(f"{launches} kernel launches for {stats.steps} block steps")
 
     t0 = time.perf_counter()
-    probes, roofline, probes_line = phase_probes(dec, acs_ms, acs_start1)
+    floor_us = lowering.launch_floor_us()
+    log(f"phase 4: launch floor (an empty kernel, CUDA graphs of "
+        f"{expand.GRAPH_CALLS}): {floor_us:.4f} us")
+    probes, roofline, probes_line = phase_probes(dec, acs_ms, acs_start1,
+                                                 floor_us)
     log(f"phase 4: done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1554,7 +1745,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lowerings, lowering_rates = phase_lowering(
-        roofline["lane_peak_ops_per_s"])
+        roofline["lane_peak_ops_per_s"], floor_us)
     log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -55,9 +55,32 @@
 // FADD. On the same card VEC = 2 is the fastest, 0.43 ms, about 92% of
 // its floor (VEC = 1 and 4 took 0.45 and 0.46 ms), where the first form
 // (VEC = 1, rounds in a loop) took 0.52 ms, about 76%.
-// Treepop at the probe's shapes (1024 to 4096 columns) is a few thousand
-// threads and measures launch latency more than anything else; it checks
-// index order, not speed.
+//
+// treepop: each variant is a fixed pairing of 64 slots, slot v holding a
+// candidate or -inf (payload 0) after a map the launcher computes from the
+// variant and nc (`TreeRows`): argmax, reshape_pair and concat pair
+// adjacent slots (the first maximum over the first n, 2^floor(log2 n) and
+// min(n, 60) candidates: a pair tree that drops or carries an odd last
+// entry reduces to that, and a -inf right child never wins on a strict `>`);
+// halves pairs slot i with i + m, its candidates placed at the slots where
+// that tree pairs them for the n given. A column's 64 slots lie in
+// registers over G lanes (1, 2, 4 or 8, adjacent lanes of a warp): for
+// the adjacent pairings lane l holds slots [l 64/G, (l+1) 64/G), for
+// halves slots j G + l, so that the levels above G pair within a lane.
+// Each lane runs its part of the tree unrolled, then log2 G shuffle steps
+// finish it: at offset s the lane whose bit s is clear holds the pair's
+// first entry, and the second wins only if strictly greater (adjacent
+// pairings step s = 1, 2, ...; halves s = G/2, ..., 1). The launcher takes
+// the fewest lanes that give every SM a block, at most 8: G = 8 at the
+// probe's 1024 columns, G = 1 at 262,144. Loads are whole sectors from 8
+// columns on (G <= 4), the guard is read by every thread, and a failed
+// guard writes the zeros itself, so one launch is the whole call. On an
+// H100 80GB HBM3 at 700 W, from CUDA graphs at [64, 8, 128] (G = 8, 37
+// registers) 1.73-1.93 us a call, where an empty kernel takes 0.83-1.15
+// us; at [64, 8, 32768] (G = 1, 168 registers) 0.047-0.052 ms, ~80% of the
+// 0.0407 ms its bytes need. The first form (one thread a column, the 64
+// candidates in arrays indexed at run time, a 512-byte stack frame) took
+// 9.4-15.8 us and 0.21-0.23 ms (PERF.md).
 //
 // Exactness: no --use_fast_math and no -ftz, so the denormals among the
 // stream's bitcast hashes (bit patterns below 2^23) survive; --fmad=false
@@ -81,6 +104,7 @@ constexpr int kBlock = 128;
 constexpr int kMergeLanes = 2;  // lanes a merge column is split over
 constexpr int kMergeBlock = 256;  // a merge block: 8 copies of a tile
 constexpr int kConcatN = 60;  // the concat variant's odd-length start
+constexpr int kTreeBlock = 64;  // a tree-pop block: 128 blocks at 1024 x 8
 constexpr int kStreamRounds = 8;  // the probe's rounds, unrolled
 
 enum Variant { kArgmax = 0, kReshapePair = 1, kHalves = 2, kConcat = 3 };
@@ -341,59 +365,164 @@ __global__ void __launch_bounds__(kBlock) issue_kernel(
   out[t] = r;
 }
 
-template <int V>
-__global__ void __launch_bounds__(kBlock) treepop_kernel(
+// The tree pop's 64 slots: slot v holds candidate row r[v], or -inf with
+// payload 0 where r[v] < 0; r[v] == v for v < n. The kernel reads r only
+// past n: lanes that index a parameter with different slots are served
+// one address at a time (0.18-0.2 us a call at [64, 8, 128], PERF.md).
+struct TreeRows {
+  int8_t r[kMaxNc];
+  int n;
+};
+
+// The first of a pair keeps its place unless the second is strictly
+// greater.
+__device__ __forceinline__ void pair_keep(float& v, int32_t& p, float v2,
+                                          int32_t p2) {
+  const bool tk = v2 > v;
+  v = tk ? v2 : v;
+  p = tk ? p2 : p;
+}
+
+// The halves tree over v, p [N]: the level of M pairs j with j + M, then
+// the level of M / 2. (A loop over the levels nested around one over j
+// stayed rolled and put the arrays in local memory.)
+template <int M, int N>
+__device__ __forceinline__ void halves_levels(float (&v)[N],
+                                              int32_t (&p)[N]) {
+  if constexpr (M >= 1) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) pair_keep(v[j], p[j], v[j + M], p[j + M]);
+    halves_levels<M / 2>(v, p);
+  }
+}
+
+// One column per group of G adjacent lanes. A group past the last column
+// runs on the last column and writes nothing, so that every lane of a warp
+// reaches the shuffles.
+template <int V, int G>
+__global__ void __launch_bounds__(kTreeBlock) treepop_kernel(
     const float* __restrict__ x, const int32_t* __restrict__ h,
-    float* __restrict__ out, int32_t* __restrict__ out_h, int nc, int ncol,
-    int guarded) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= ncol) return;
-  // run_when's pl.when: every column reads the first element
-  if (guarded && !(x[0] < 1e9f)) return;
-  int n = V == kConcat && nc > kConcatN ? kConcatN : nc;
-  if (V == kArgmax) {  // first maximum in index order
-    float best = x[col];
-    int32_t bh = h[col];
-    for (int i = 1; i < n; ++i) {
-      const float v = x[static_cast<size_t>(i) * ncol + col];
-      if (v > best) {
-        best = v;
-        bh = h[static_cast<size_t>(i) * ncol + col];
-      }
+    float* __restrict__ out, int32_t* __restrict__ out_h, int ncol,
+    int guarded, const __grid_constant__ TreeRows rows) {
+  constexpr int N = kMaxNc / G;  // slots a lane holds
+  constexpr bool kHalvesTree = V == kHalves;
+  const int lane = threadIdx.x % G;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * (kTreeBlock / G) +
+                    threadIdx.x / G;
+  const bool live = c < ncol;
+  const int col = live ? static_cast<int>(c) : ncol - 1;
+  // run_when's pl.when: one value for the whole grid
+  if (guarded && !(__ldg(x) < 1e9f)) {
+    if (live && lane == 0) {
+      out[col] = 0.0f;
+      out_h[col] = 0;
     }
-    out[col] = best;
-    out_h[col] = bh;
     return;
   }
-  float v[kMaxNc];
-  int32_t p[kMaxNc];
-  for (int i = 0; i < n; ++i) {
-    v[i] = x[static_cast<size_t>(i) * ncol + col];
-    p[i] = h[static_cast<size_t>(i) * ncol + col];
+  float v[N];
+  int32_t p[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int slot = kHalvesTree ? j * G + lane : lane * N + j;
+    const int r = slot < rows.n ? slot : rows.r[slot];
+    const size_t at = static_cast<size_t>(r < 0 ? 0 : r) * ncol + col;
+    v[j] = r < 0 ? -INFINITY : __ldg(x + at);
+    p[j] = r < 0 ? 0 : __ldg(h + at);
   }
-  // each level writes its survivors to the front of the arrays; a survivor
-  // i reads only entries at indices >= i, none of them written yet
-  while (n > 1) {
-    const int m = n / 2;
-    for (int i = 0; i < m; ++i) {
-      // halves pairs i with i + m, the others 2i with 2i + 1; the second
-      // of a pair wins only if strictly greater
-      const int a = V == kHalves ? i : 2 * i;
-      const int b = V == kHalves ? i + m : 2 * i + 1;
-      const bool tk = v[b] > v[a];
-      v[i] = tk ? v[b] : v[a];
-      p[i] = tk ? p[b] : p[a];
-    }
-    if (V == kConcat && 2 * m < n) {  // carry the odd one out, last
-      v[m] = v[2 * m];
-      p[m] = p[2 * m];
-      n = m + 1;
-    } else {  // reshape_pair and halves drop an odd last entry
-      n = m;
-    }
+  // the lane's part of the tree, every index a compile-time constant
+  if constexpr (kHalvesTree) {
+    halves_levels<N / 2>(v, p);
+  } else {
+#pragma unroll
+    for (int w = 1; w < N; w *= 2)
+#pragma unroll
+      for (int j = 0; j < N; j += 2 * w)
+        pair_keep(v[j], p[j], v[j + w], p[j + w]);
   }
-  out[col] = v[0];
-  out_h[col] = p[0];
+  // the levels across lanes: the lane whose bit s is clear holds the first
+  // entry of the pair
+#pragma unroll
+  for (int k = 0; (1 << k) < G; ++k) {
+    const int s = kHalvesTree ? G >> (k + 1) : 1 << k;
+    const float v2 = __shfl_xor_sync(0xffffffffu, v[0], s, G);
+    const int32_t p2 = __shfl_xor_sync(0xffffffffu, p[0], s, G);
+    const bool tk = lane & s ? !(v[0] > v2) : v2 > v[0];
+    v[0] = tk ? v2 : v[0];
+    p[0] = tk ? p2 : p[0];
+  }
+  if (live && lane == 0) {
+    out[col] = v[0];
+    out_h[col] = p[0];
+  }
+}
+
+// The slots of `variant` over nc candidates (see the header).
+TreeRows tree_rows(int variant, int nc) {
+  TreeRows t;
+  int lg = 0;  // floor(log2 nc)
+  while ((2 << lg) <= nc) ++lg;
+  for (int v = 0; v < kMaxNc; ++v) {
+    int r = -1;
+    if (variant == kHalves) {
+      // levels k < lg pair i with i + (nc >> (k + 1)); slot v's high lg
+      // bits say which side it takes at each level
+      const int low = kMaxNc / (1 << lg) - 1;
+      if ((v & low) == 0) {
+        const int u = v / (low + 1);
+        r = 0;
+        for (int k = 0; k < lg; ++k)
+          if (u >> (lg - 1 - k) & 1) r += nc >> (k + 1);
+      }
+    } else {
+      const int n = variant == kArgmax ? nc
+                    : variant == kConcat ? (nc < kConcatN ? nc : kConcatN)
+                                         : 1 << lg;
+      r = v < n ? v : -1;
+    }
+    t.r[v] = static_cast<int8_t>(r);
+  }
+  t.n = 0;
+  while (t.n < kMaxNc && t.r[t.n] == t.n) ++t.n;
+  return t;
+}
+
+using TreeFn = void (*)(const float*, const int32_t*, float*, int32_t*, int,
+                        int, const TreeRows);
+
+template <int V>
+TreeFn tree_fn_lanes(int lanes) {
+  switch (lanes) {
+    case 1: return treepop_kernel<V, 1>;
+    case 2: return treepop_kernel<V, 2>;
+    case 4: return treepop_kernel<V, 4>;
+    case 8: return treepop_kernel<V, 8>;
+    default: return nullptr;
+  }
+}
+
+TreeFn tree_fn(int variant, int lanes) {
+  switch (variant) {
+    case kArgmax: return tree_fn_lanes<kArgmax>(lanes);
+    case kReshapePair: return tree_fn_lanes<kReshapePair>(lanes);
+    case kHalves: return tree_fn_lanes<kHalves>(lanes);
+    case kConcat: return tree_fn_lanes<kConcat>(lanes);
+    default: return nullptr;
+  }
+}
+
+// The fewest lanes (1, 2, 4, 8) that give every SM of the current device a
+// block of the tree pop over ncol columns; 0 if the device query fails.
+int tree_lanes(int ncol) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  int g = 1;
+  while (g < 8 && static_cast<int64_t>(ncol) * g <
+                      static_cast<int64_t>(sms) * kTreeBlock)
+    g *= 2;
+  return g;
 }
 
 int blocks(int64_t threads, int block = kBlock) {
@@ -510,41 +639,39 @@ extern "C" int probe_issue_launch(int kind, const void* in, void* out,
 }
 
 // treepop: x f32 [nc, ncol], h int32 [nc, ncol], out f32 [ncol], out_h
-// int32 [ncol]; variant 0 argmax, 1 reshape_pair, 2 halves, 3 concat; with
-// `guarded` the outputs are written only if x[0] < 1e9. Returns
+// int32 [ncol]; variant 0 argmax, 1 reshape_pair, 2 halves, 3 concat; lanes
+// 1, 2, 4 or 8 a column, or 0 for `probe_treepop_lanes(ncol)`; with
+// `guarded` the outputs are the kernel's if x[0] < 1e9, else zeros. Returns
 // cudaGetLastError().
 extern "C" int probe_treepop_launch(const void* x, const void* h, void* out,
                                     void* out_h, int nc, int ncol,
-                                    int variant, int guarded, void* stream) {
-  if (nc < 1 || nc > kMaxNc || ncol < 1)
+                                    int variant, int guarded, int lanes,
+                                    void* stream) {
+  if (nc < 1 || nc > kMaxNc || ncol < 1 || lanes < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto xs = static_cast<const float*>(x);
-  const auto hs = static_cast<const int32_t*>(h);
-  const auto o = static_cast<float*>(out);
-  const auto oh = static_cast<int32_t*>(out_h);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int nb = blocks(ncol);
-  switch (variant) {
-    case kArgmax:
-      treepop_kernel<kArgmax><<<nb, kBlock, 0, st>>>(xs, hs, o, oh, nc, ncol,
-                                                     guarded);
-      break;
-    case kReshapePair:
-      treepop_kernel<kReshapePair><<<nb, kBlock, 0, st>>>(xs, hs, o, oh, nc,
-                                                          ncol, guarded);
-      break;
-    case kHalves:
-      treepop_kernel<kHalves><<<nb, kBlock, 0, st>>>(xs, hs, o, oh, nc, ncol,
-                                                     guarded);
-      break;
-    case kConcat:
-      treepop_kernel<kConcat><<<nb, kBlock, 0, st>>>(xs, hs, o, oh, nc, ncol,
-                                                     guarded);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (lanes == 0 && (lanes = tree_lanes(ncol)) == 0)
+    return static_cast<int>(cudaGetLastError());
+  const TreeFn fn = tree_fn(variant, lanes);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = kTreeBlock / lanes;  // columns a block
+  fn<<<(ncol + cols - 1) / cols, kTreeBlock, 0,
+       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int32_t*>(h),
+      static_cast<float*>(out), static_cast<int32_t*>(out_h), ncol, guarded,
+      tree_rows(variant, nc));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The lanes a column `probe_treepop_launch` takes for ncol columns when
+// given 0, on the current device; 0 if the device query fails.
+extern "C" int probe_treepop_lanes(int ncol) { return tree_lanes(ncol); }
+
+// The registers, local bytes and resident threads per SM of the tree-pop
+// kernel of `variant` at `lanes` lanes a column, into out[0..2].
+extern "C" int probe_treepop_info(int variant, int lanes, int* out) {
+  const TreeFn fn = tree_fn(variant, lanes);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return kernel_info(reinterpret_cast<const void*>(fn), kTreeBlock, out);
 }
 
 extern "C" const char* probe_error_string(int err) {

@@ -146,9 +146,16 @@ def load_probes() -> ctypes.CDLL:
                    lib.probe_merge_info, lib.probe_stream_info,
                    lib.probe_issue_launch):
             fn.restype = i
-        # x, h, out, out_h, then nc, ncol, variant, guarded and the stream
-        lib.probe_treepop_launch.argtypes = [p] * 4 + [i] * 4 + [p]
-        lib.probe_treepop_launch.restype = i
+        # x, h, out, out_h, then nc, ncol, variant, guarded, lanes and the
+        # stream
+        lib.probe_treepop_launch.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.probe_treepop_lanes.argtypes = [i]  # ncol
+        # variant, lanes, and where registers, local bytes and threads per
+        # SM go
+        lib.probe_treepop_info.argtypes = [i, i, ctypes.POINTER(i)]
+        for fn in (lib.probe_treepop_launch, lib.probe_treepop_lanes,
+                   lib.probe_treepop_info):
+            fn.restype = i
         lib.probe_error_string.argtypes = [i]
         lib.probe_error_string.restype = ctypes.c_char_p
         _LIBS["probes"] = lib
@@ -202,18 +209,22 @@ def load_lowering() -> ctypes.CDLL:
         # x, y, n and the stream (int16 and the reshape's copy)
         for fn in (lib.lowering_int16_launch, lib.lowering_copy_launch):
             fn.argtypes = [p, p, n, p]
-        # x, h, out, then placement, nq, ncol, rounds, copies, the threads
-        # per SM (0: one per item), the zero and the stream
+        # x, h, out, then placement, nq, ncol, rounds, copies, lanes (0:
+        # the launcher's), the threads per SM (0: one per item), the zero
+        # and the stream
         lib.lowering_fori_launch.argtypes = (
-            [p, p, p] + [i] * 6 + [ctypes.c_float, p])
-        # placement, nq, and where the resident threads per SM go
-        lib.lowering_fori_resident.argtypes = [i, i,
-                                               ctypes.POINTER(ctypes.c_int)]
+            [p, p, p] + [i] * 7 + [ctypes.c_float, p])
+        lib.lowering_fori_lanes.argtypes = [n]  # items
+        # placement, nq, lanes, and where registers, local bytes and
+        # resident threads per SM go
+        lib.lowering_fori_info.argtypes = [i, i, i, ctypes.POINTER(i)]
         # stale, x, s, then P, W, row and the stream
         lib.lowering_alias_launch.argtypes = [p, p, p, i, i, i, p]
+        lib.lowering_empty_launch.argtypes = [p]  # the stream
         for fn in (lib.lowering_dynrow_launch, lib.lowering_int16_launch,
                    lib.lowering_copy_launch, lib.lowering_fori_launch,
-                   lib.lowering_fori_resident, lib.lowering_alias_launch):
+                   lib.lowering_fori_lanes, lib.lowering_fori_info,
+                   lib.lowering_alias_launch, lib.lowering_empty_launch):
             fn.restype = i
         lib.lowering_error_string.argtypes = [i]
         lib.lowering_error_string.restype = ctypes.c_char_p

@@ -14,9 +14,11 @@ Mosaic lowers six primitives; here each is a question of cost:
   2**16 as numpy's ``astype`` does;
 * ``fori``: R rounds of first-argmax over NQ candidates per column with a
   one-hot select, carrying scores, hashes, pointers and a running sum, the
-  state in registers (``regs``) or in local memory (``local``, as the ACS
-  kernel holds its candidates); at the script's NQ = 32, R = 18 and at the
-  ACS kernel's merge, NQ = 8L = 64, R = L = 8 (``fori.k1``);
+  scores in registers over 1, 2, 4 or 8 lanes a column (``regs``,
+  ``LANES``) or the whole state in local memory, one thread a column
+  (``local``, as the ACS kernel held its candidates); at the script's NQ =
+  32, R = 18 and at the ACS kernel's merge, NQ = 8L = 64, R = L = 8
+  (``fori.k1``);
 * ``reshape``: f32 [8, L, C] -> [8L, C] as a copy into a new tensor;
 * ``alias``: ``stale[s + w] = (stale[s + w] + x[s + w]) + w`` for w < W, in
   place on stale f32 [P, 8, C] (the same tensor comes back), s an int32 [1]
@@ -29,10 +31,11 @@ kernels of ``csrc/lowering.cu``, any other device raises.
 
 runs the cases (all by default; ``fori`` also selects ``fori.k1``), prints
 each check, OK or WRONG against the numpy result the script checks, with
-the device time per call, then the fori rates at both NQ over
-``FORI_COPIES`` copies of the columns: ``regs``, ``local``, and ``local``
-capped at ``regs``'s resident threads per SM, which splits the placement's
-gain from the residency's. It exits non-zero if any case or rate is wrong.
+the device time per call and the launch floor (an empty kernel,
+``launch_floor_us``), then the fori rates at both NQ over ``FORI_COPIES``
+copies of the columns: ``regs``, ``local``, and ``local`` capped at
+``regs``'s resident threads per SM, which splits the placement's gain from
+the residency's. It exits non-zero if any case or rate is wrong.
 """
 from __future__ import annotations
 
@@ -54,6 +57,8 @@ PLACEMENTS = ("regs", "local")
 # (NQ, R) of the fori probe: the script's, and the ACS kernel's merge at
 # L = 8 (8L candidates, L rounds); the kernel is built for these NQ
 FORI_POINTS = ((32, 18), (64, 8))
+# lanes a column of fori regs, the kernels built
+LANES = (1, 2, 4, 8)
 # copies of the 1024 columns for the fori rates: 262,144 threads, about two
 # waves of the card at full residency
 FORI_COPIES = 256
@@ -68,18 +73,31 @@ LAUNCHES = {"dynrow": 0, "int16": 0, "fori_regs": 0, "fori_local": 0,
             "reshape": 0, "alias": 0}
 
 
-def fori_ops(nq: int, placement: str = "local") -> int:
+def fori_ops(nq: int, placement: str = "local", lanes: int = 1) -> int:
     """Operations of one fori round on one column, one per element and pass
     as ``merge_roofline`` counts them. What the function needs, and the
     ``local`` placement executes: the first argmax, 3 per candidate
     (compare, keep the score, keep the index), then the winner's hash, its
     parity, conversion and product by zero, the pointer add, the score
-    subtract and the two adds: 3 NQ + 8. ``regs`` executes the one-hot
-    sweeps besides, 6 per candidate (compare, hash select and sum, pointer
-    add, score subtract and select), and no indexed hash read: 9 NQ + 5."""
+    subtract and the two adds: 3 NQ + 8. ``regs`` at G = ``lanes`` lanes, as
+    its code reads: the lanes' trees, 3 per pair, 3 (NQ - G); a compare, a
+    predicated subtract and a predicated move per candidate (the owner's
+    update and hash), 3 NQ; 6 per lane and shuffle step (two shuffles, two
+    compares, two selects), 6 G log2 G; and 10 per lane (the flat index,
+    the owner's offset, the count's compare and add, the owner's lane and
+    the hash's shuffle, its parity, conversion and product, the two adds):
+    6 NQ + 7 G + 6 G log2 G. At G = 1 the hash is read back from memory
+    (its address and load) in place of the moves and the shuffle: 5 NQ +
+    8."""
     if placement not in PLACEMENTS:
         raise ValueError(f"unknown placement {placement!r}")
-    return 9 * nq + 5 if placement == "regs" else 3 * nq + 8
+    if placement == "local":
+        return 3 * nq + 8
+    if lanes not in LANES:
+        raise ValueError(f"no fori regs kernel at {lanes} lanes")
+    if lanes == 1:
+        return 5 * nq + 8
+    return 6 * nq + 7 * lanes + 6 * lanes * (lanes.bit_length() - 1)
 
 
 def _launch(name: str, lib, err: int) -> None:
@@ -174,18 +192,22 @@ def fori_ref(x: torch.Tensor, h: torch.Tensor, rounds: int) -> torch.Tensor:
 
 def fori(x: torch.Tensor, h: torch.Tensor, rounds: int,
          placement: str = "regs", copies: int = 1,
-         threads_per_sm: int = 0) -> torch.Tensor:
+         threads_per_sm: int = 0, lanes: int = 0) -> torch.Tensor:
     """``copies`` copies of the fori probe over one input: x f32 [NQ, C], h
     int32 [NQ, C] -> f32 [copies, 1, C], every copy the same. CUDA tensors
-    launch the kernel with its state placed in registers (``regs``) or in
-    local memory (``local``); NQ is 32 or 64 there. ``threads_per_sm`` > 0
-    launches a grid of at most that many threads per SM, which stride over
-    the items; 0 launches one thread per item."""
+    launch the kernel with the scores in registers over ``lanes`` lanes a
+    column (``regs``: one of ``LANES``, or 0 for ``auto_lanes``) or its
+    state in local memory (``local``, one thread a column, ``lanes`` 0 or
+    1); NQ is 32 or 64 there. ``threads_per_sm`` > 0 launches a grid of at
+    most that many threads per SM, which stride over the items; 0 launches
+    one thread (regs: ``lanes``) per item."""
     if placement not in PLACEMENTS:
         raise ValueError(f"unknown placement {placement!r}")
     if rounds < 0 or copies < 1 or threads_per_sm < 0:
         raise ValueError("rounds must be >= 0, copies >= 1 and "
                          "threads_per_sm >= 0")
+    if lanes not in ((0, *LANES) if placement == "regs" else (0, 1)):
+        raise ValueError(f"no fori {placement} kernel at {lanes} lanes")
     if not _on_card("fori", x):
         ref = fori_ref(x, h, rounds)
         return ref.expand(copies, *ref.shape)
@@ -201,25 +223,54 @@ def fori(x: torch.Tensor, h: torch.Tensor, rounds: int,
     with torch.cuda.device(x.device):
         err = lib.lowering_fori_launch(
             x.data_ptr(), h.data_ptr(), y.data_ptr(),
-            PLACEMENTS.index(placement), nq, C, rounds, copies,
+            PLACEMENTS.index(placement), nq, C, rounds, copies, lanes,
             threads_per_sm, 0.0, _stream(x.device))
     _launch(f"fori_{placement}", lib, err)
     return y
 
 
-def fori_resident(placement: str, nq: int) -> int:
-    """Resident threads per SM of the fori kernel in ``placement`` at NQ =
-    ``nq`` on the current CUDA device, from the occupancy calculator."""
+def auto_lanes(items: int) -> int:
+    """The lanes a column ``fori`` regs takes by default over ``items``
+    (copies x columns) on the current CUDA device: the fewest that give
+    every SM a block, at most 8."""
+    g = load_lowering().lowering_fori_lanes(items)
+    if g == 0:
+        raise RuntimeError("fori: the device query failed")
+    return g
+
+
+def fori_info(placement: str, nq: int, lanes: int = 1) -> dict:
+    """Registers, local memory in bytes (stack frame and spills) and
+    resident threads per SM (the occupancy calculator) of the fori kernel
+    in ``placement`` at NQ = ``nq`` and ``lanes`` lanes a column (1 for
+    ``local``) on the current CUDA device."""
     if placement not in PLACEMENTS:
         raise ValueError(f"unknown placement {placement!r}")
     lib = load_lowering()
-    n = ctypes.c_int(0)
-    err = lib.lowering_fori_resident(PLACEMENTS.index(placement), nq,
-                                     ctypes.byref(n))
+    out = (ctypes.c_int * 3)()
+    err = lib.lowering_fori_info(PLACEMENTS.index(placement), nq, lanes, out)
     if err != 0:
-        raise RuntimeError("fori occupancy query failed: "
+        raise RuntimeError("fori kernel info failed: "
                            + lib.lowering_error_string(err).decode())
-    return n.value
+    return {"registers": out[0], "local_bytes": out[1],
+            "threads_per_sm": out[2]}
+
+
+def launch_floor_us(device="cuda") -> float:
+    """The launch floor: the device time of one empty kernel (one thread)
+    on ``device``, replayed from a CUDA graph of ``expand.GRAPH_CALLS``
+    launches (``expand.graph_us``), in microseconds."""
+    dev = torch.device(device)
+    lib = load_lowering()
+
+    def empty():
+        with torch.cuda.device(dev):
+            err = lib.lowering_empty_launch(_stream(dev))
+        if err != 0:
+            raise RuntimeError("empty launch failed: "
+                               + lib.lowering_error_string(err).decode())
+
+    return expand.graph_us(empty)
 
 
 def reshape_ref(x: torch.Tensor) -> torch.Tensor:
@@ -429,12 +480,13 @@ def run(case: Case, device: str = "cuda") -> bool:
 def fori_rate(nq: int, rounds: int, placement: str,
               threads_per_sm: int = 0) -> Dict:
     """``FORI_COPIES`` copies of the fori kernel over [nq, 1024] normal
-    scores on the CUDA card (``threads_per_sm`` as ``fori`` takes it),
-    timed by CUDA events (the fastest of 5), every copy checked against the
-    plain version: the resident threads per SM, candidate elements per
-    second (each candidate once per round), and the operations per second
-    and share of the FP32 lane peak, both of what the function needs
-    (``fori_ops``) and of what the placement executes."""
+    scores on the CUDA card (``threads_per_sm`` as ``fori`` takes it, regs
+    at its default lanes), timed by CUDA events (the fastest of 5), every
+    copy checked against the plain version: the lanes a column, the
+    resident threads per SM, candidate elements per second (each candidate
+    once per round), and the operations per second and share of the FP32
+    lane peak, both of what the function needs (``fori_ops``) and of what
+    the placement executes."""
     cols = 1024
     rng = np.random.default_rng(0)
     x = torch.from_numpy(_normal(rng, (nq, cols))).cuda()
@@ -448,18 +500,19 @@ def fori_rate(nq: int, rounds: int, placement: str,
     sec = ms / 1e3
     items = FORI_COPIES * cols * rounds
     peak, _ = lane_peak()
-    resident = fori_resident(placement, nq)
+    lanes = auto_lanes(FORI_COPIES * cols) if placement == "regs" else 1
+    resident = fori_info(placement, nq, lanes)["threads_per_sm"]
     if threads_per_sm:
         resident = min(resident, threads_per_sm)
+    executed = fori_ops(nq, placement, lanes)
     return {"placement": placement, "nq": nq, "rounds": rounds,
-            "copies": FORI_COPIES, "cols": cols, "ok": ok, "ms": ms,
-            "threads_per_sm": resident,
+            "copies": FORI_COPIES, "cols": cols, "lanes": lanes, "ok": ok,
+            "ms": ms, "threads_per_sm": resident,
             "elements_per_s": items * nq / sec,
             "needed_ops_per_s": items * fori_ops(nq) / sec,
             "share_of_lane_peak": items * fori_ops(nq) / sec / peak,
-            "executed_ops_per_s": items * fori_ops(nq, placement) / sec,
-            "executed_share_of_lane_peak":
-                items * fori_ops(nq, placement) / sec / peak}
+            "executed_ops_per_s": items * executed / sec,
+            "executed_share_of_lane_peak": items * executed / sec / peak}
 
 
 def fori_rates():
@@ -475,7 +528,8 @@ def fori_rates():
         capped = fori_rate(nq, rounds, "local", regs["threads_per_sm"])
         for r in (regs, local, capped):
             print(f"fori [{r['placement']}] NQ={nq} R={rounds} x "
-                  f"{FORI_COPIES} copies of {r['cols']} columns at "
+                  f"{FORI_COPIES} copies of {r['cols']} columns, "
+                  f"{r['lanes']} lanes a column, at "
                   f"{r['threads_per_sm']} threads/SM: "
                   f"{'OK' if r['ok'] else 'WRONG'} {r['ms']:.4f} ms, "
                   f"{r['elements_per_s'] / 1e9:.2f} G elements/s; needed "
@@ -517,6 +571,8 @@ def main(argv=None) -> Tuple[bool, list]:
     if not torch.cuda.is_available():
         raise SystemExit("lowering: needs a CUDA device")
     ok = all([run(c) for c in cases])
+    print(f"launch floor (an empty kernel): {launch_floor_us():.3f} us/call",
+          flush=True)
     rates = []
     if any(c.name.startswith("fori") for c in cases):
         rates = fori_rates()

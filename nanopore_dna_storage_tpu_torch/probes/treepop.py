@@ -17,7 +17,12 @@ picked:
 In every pair the second candidate wins only if strictly greater.
 ``run_when`` runs the pair tree behind a guard on the data
 (``x[0, 0, 0] < 1e9``), the structure of the production kernel; when the
-guard fails the outputs stay zero.
+guard fails the outputs are zero.
+
+On the card a column's 64 candidates lie in registers over 1, 2, 4 or 8
+lanes (``LANES``): each lane runs its part of the variant's tree, shuffles
+finish it; by default the kernel takes the fewest lanes that give every SM
+a block (``auto_lanes``).
 
     python -m nanopore_dna_storage_tpu_torch.probes.treepop \\
         [variant ...] [--when CT ...]
@@ -25,6 +30,7 @@ guard fails the outputs stay zero.
 from __future__ import annotations
 
 import argparse
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -36,6 +42,7 @@ NC, F, CT = 64, 8, 128
 VARIANTS = ("argmax", "reshape_pair", "halves", "concat")
 CONCAT_N = 60  # the concat variant's odd-length start
 GUARD = 1e9
+LANES = (1, 2, 4, 8)  # lanes a column, the kernels built
 
 # Kernel launches made through ``treepop`` (CUDA tensors only).
 LAUNCHES = 0
@@ -73,12 +80,16 @@ def treepop_ref(x: torch.Tensor, h: torch.Tensor, variant: str,
 
 
 def treepop(x: torch.Tensor, h: torch.Tensor, variant: str,
-            guarded: bool = False) -> Pair:
+            guarded: bool = False, lanes: int = 0) -> Pair:
     """The tree pop of ``variant`` over scores f32 [NC <= 64, F, CT] and
     payloads int32 of the same shape. CPU tensors run ``treepop_ref``; CUDA
-    tensors launch the kernel of ``csrc/probes.cu``; anything else raises."""
+    tensors launch the kernel of ``csrc/probes.cu`` at ``lanes`` lanes a
+    column (one of ``LANES``, or 0 for ``auto_lanes``); anything else
+    raises."""
     global LAUNCHES
     dev = x.device
+    if lanes not in (0, *LANES):
+        raise ValueError(f"lanes must be 0 or one of {LANES}, not {lanes}")
     if dev.type == "cpu":
         return treepop_ref(x, h, variant, guarded)
     if dev.type != "cuda":
@@ -91,19 +102,46 @@ def treepop(x: torch.Tensor, h: torch.Tensor, variant: str,
     nc, f, ct = x.shape
     check_tensor("x", x, torch.float32, x.shape, dev)
     check_tensor("h", h, torch.int32, x.shape, dev)
-    out = torch.zeros((f, ct), dtype=torch.float32, device=dev)
-    out_h = torch.zeros((f, ct), dtype=torch.int32, device=dev)
+    out = torch.empty((f, ct), dtype=torch.float32, device=dev)
+    out_h = torch.empty((f, ct), dtype=torch.int32, device=dev)
     lib = load_probes()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.probe_treepop_launch(
             x.data_ptr(), h.data_ptr(), out.data_ptr(), out_h.data_ptr(), nc,
-            f * ct, VARIANTS.index(variant), int(guarded), stream)
+            f * ct, VARIANTS.index(variant), int(guarded), lanes, stream)
     if err != 0:
         raise RuntimeError("probe treepop launch failed: "
                            + lib.probe_error_string(err).decode())
     LAUNCHES += 1
     return out, out_h
+
+
+def auto_lanes(ncol: int) -> int:
+    """The lanes a column ``treepop`` takes by default over ``ncol`` (F x
+    CT) columns on the current CUDA device: the fewest that give every SM a
+    block, at most 8."""
+    g = load_probes().probe_treepop_lanes(ncol)
+    if g == 0:
+        raise RuntimeError("treepop: the device query failed")
+    return g
+
+
+def treepop_info(variant: str, lanes: int) -> dict:
+    """Registers, local memory in bytes (stack frame and spills) and
+    resident threads per SM of the tree-pop kernel of ``variant`` at
+    ``lanes`` lanes a column, on the current CUDA device."""
+    if variant not in VARIANTS or lanes not in LANES:
+        raise ValueError(f"no tree-pop kernel for {variant!r} at {lanes} "
+                         f"lanes")
+    lib = load_probes()
+    out = (ctypes.c_int * 3)()
+    err = lib.probe_treepop_info(VARIANTS.index(variant), lanes, out)
+    if err != 0:
+        raise RuntimeError("treepop info failed: "
+                           + lib.probe_error_string(err).decode())
+    return {"registers": out[0], "local_bytes": out[1],
+            "threads_per_sm": out[2]}
 
 
 def _inputs(ct: int, device: str):

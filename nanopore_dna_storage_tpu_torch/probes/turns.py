@@ -1,19 +1,22 @@
-"""The logsumexp ACS step, the reshape copy and the merge and stream probes
-of several trees of this repository, timed in turns on one CUDA card.
+"""The logsumexp ACS step, the reshape copy, the merge and stream probes,
+the tree pop and the fori probe of several trees of this repository, timed
+in turns on one CUDA card.
 
     python -m nanopore_dna_storage_tpu_torch.probes.turns \\
-        --roots build/parent . . build/parent
+        --roots build/parent . . build/parent [--points treepop fori ...]
 
 For each root in order this runs one process with that root on
 ``PYTHONPATH``, so that it imports, builds and launches that root's kernels
 through APIs every tree since the lse kernel was ported shares
 (``LVADecoder``, ``acs_block_lse``, ``lse_kernel_info``; ``reshape``,
 ``graph_us``; ``merge_roofline.merge``, ``stream`` and their plain
-versions), and prints one JSON line; then this prints every root's numbers
-side by side, and each root's stream kernel's SASS mix per element and
-round (this tree's ``merge_roofline.stream_mix`` on the library that root
-built). Two trees compare only inside one run: the order parent, this,
-this, parent spreads the card's drift over both.
+versions; ``treepop.treepop``, ``treepop_ref``; ``lowering.fori``,
+``fori_ref``), and prints one JSON line; then this prints every root's
+numbers side by side, and each root's stream kernel's SASS mix per element
+and round (this tree's ``merge_roofline.stream_mix`` on the library that
+root built). Two trees compare only inside one run: the order parent,
+this, this, parent spreads the card's drift over both. ``--points`` picks
+some of the points below (``POINTS``; all by default).
 
 Points, each output held bit-equal to its plain version before it is
 timed:
@@ -31,7 +34,14 @@ timed:
   tensor;
 * the merge and stream probes at [64, 8, 512] x 256 copies and 8 rounds,
   every copy held bit-equal to the plain version of one, then ``REPS``
-  calls after ``WARMUP`` by CUDA events, ``REPEATS`` times.
+  calls after ``WARMUP`` by CUDA events, ``REPEATS`` times;
+* the tree pop, every variant, at [64, 8, 128] from CUDA graphs and at
+  ``TREEPOP_LARGE`` by CUDA events (``REPS`` calls after ``WARMUP``,
+  ``REPEATS`` times), each held bit-equal to ``treepop_ref`` first;
+* the fori probe in its regs placement at both ``FORI_POINTS`` from CUDA
+  graphs, and regs and local over ``FORI_COPIES`` copies by CUDA events,
+  each held bit-equal to ``fori_ref`` first; and, where the tree has it,
+  the launch floor (``launch_floor_us``).
 """
 from __future__ import annotations
 
@@ -50,6 +60,9 @@ RESHAPE_SMALL = (8, 8, 1024)
 RESHAPE_LARGE = (8, 8, 1 << 20)
 # the merge and stream probes: rounds and copies
 PROBE_ROUNDS, PROBE_COPIES = 8, 256
+# the tree pop past launch latency: 128 MiB of inputs
+TREEPOP_LARGE = (64, 8, 32768)
+POINTS = ("reshape", "lse", "probes", "treepop", "fori")
 
 
 def _events_ms(torch, fn, warmup: int, reps: int) -> float:
@@ -188,13 +201,98 @@ def probe_points(torch, seed: int) -> dict:
     return out
 
 
-def measure(reads: int, seed: int) -> dict:
-    """This process's tree: every point's times, ms."""
+def _bits_equal(torch, a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def treepop_points(torch, seed: int) -> dict:
+    """Every tree-pop variant's time (ms a call) at [64, 8, 128] from CUDA
+    graphs and at ``TREEPOP_LARGE`` by CUDA events, each after the kernel's
+    value and payload are held bit-equal to ``treepop_ref``."""
+    import numpy as np
+
+    from nanopore_dna_storage_tpu_torch.probes import expand, treepop
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in (("small", (64, 8, 128)), ("large", TREEPOP_LARGE)):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+        h = torch.from_numpy(rng.permutation(x.numel()).astype(np.int32)
+                             .reshape(shape)).cuda()
+        for v in treepop.VARIANTS:
+            got = treepop.treepop(x, h, v)
+            want = treepop.treepop_ref(x, h, v)
+            if not all(_bits_equal(torch, a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"turns: the tree pop {v} differs from "
+                                 f"treepop_ref at {list(shape)}")
+
+            def call():
+                return treepop.treepop(x, h, v)
+
+            out[f"treepop_{v}_{name}_ms"] = (
+                expand.graph_us(call) / 1e3 if name == "small"
+                else [_events_ms(torch, call, WARMUP, REPS)
+                      for _ in range(REPEATS)])
+        del x, h
+        torch.cuda.empty_cache()
+    return out
+
+
+def fori_points(torch, seed: int) -> dict:
+    """fori regs at both ``FORI_POINTS`` (ms a call, CUDA graphs), regs and
+    local over ``FORI_COPIES`` copies (CUDA events), each after the result
+    is held bit-equal to ``fori_ref``; and the launch floor, where the tree
+    has it."""
+    import numpy as np
+
+    from nanopore_dna_storage_tpu_torch.probes import expand
+    from nanopore_dna_storage_tpu_torch.probes import lowering as lo
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for nq, rounds in lo.FORI_POINTS:
+        x = torch.from_numpy(rng.standard_normal((nq, 1024)).astype(
+            np.float32)).cuda()
+        h = torch.full((nq, 1024), 3, dtype=torch.int32, device="cuda")
+        want = lo.fori_ref(x, h, rounds)
+        for placement, copies in (("regs", 1), ("regs", lo.FORI_COPIES),
+                                  ("local", lo.FORI_COPIES)):
+            def call():
+                return lo.fori(x, h, rounds, placement, copies)
+
+            got = call()
+            if not _bits_equal(torch, got, want.expand_as(got)):
+                raise SystemExit(f"turns: fori {placement} differs from "
+                                 f"fori_ref at NQ={nq}")
+            key = f"fori_{placement}_{nq}x{rounds}"
+            if copies == 1:
+                out[f"{key}_ms"] = expand.graph_us(call) / 1e3
+            else:
+                out[f"{key}_copies_ms"] = _events_ms(torch, call, WARMUP,
+                                                     REPS)
+    if hasattr(lo, "launch_floor_us"):
+        out["launch_floor_ms"] = lo.launch_floor_us() / 1e3
+    return out
+
+
+def measure(reads: int, seed: int, points) -> dict:
+    """This process's tree: the times of ``points``, ms."""
     import torch
 
-    return {"gpu": torch.cuda.get_device_name(0),
-            **reshape_points(torch), **lse_points(torch, reads, seed),
-            **probe_points(torch, seed)}
+    out = {"gpu": torch.cuda.get_device_name(0)}
+    if "reshape" in points:
+        out.update(reshape_points(torch))
+    if "lse" in points:
+        out.update(lse_points(torch, reads, seed))
+    if "probes" in points:
+        out.update(probe_points(torch, seed))
+    if "treepop" in points:
+        out.update(treepop_points(torch, seed))
+    if "fori" in points:
+        out.update(fori_points(torch, seed))
+    return out
 
 
 def main(argv=None) -> int:
@@ -205,13 +303,16 @@ def main(argv=None) -> int:
                     help="reads simulated; the forward-orientation ones "
                          "must number at least 4")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--points", nargs="+", choices=POINTS, default=POINTS,
+                    help="the points timed (default all)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
         import torch
         if not torch.cuda.is_available():
             raise SystemExit("turns: needs a CUDA device")
-        print(json.dumps(measure(args.reads, args.seed)), flush=True)
+        print(json.dumps(measure(args.reads, args.seed, args.points)),
+              flush=True)
         return 0
     rows = []
     for root in args.roots:
@@ -219,8 +320,9 @@ def main(argv=None) -> int:
         env = dict(os.environ, PYTHONPATH=str(root))
         res = subprocess.run([sys.executable, __file__, "--child",
                               "--reads", str(args.reads), "--seed",
-                              str(args.seed)], cwd=root, env=env,
-                             capture_output=True, text=True, timeout=900)
+                              str(args.seed), "--points", *args.points],
+                             cwd=root, env=env, capture_output=True,
+                             text=True, timeout=900)
         sys.stderr.write(res.stderr)
         if res.returncode != 0:
             print(f"turns: {root} failed (exit {res.returncode})",
@@ -229,19 +331,24 @@ def main(argv=None) -> int:
         rows.append((str(root), json.loads(res.stdout.strip().splitlines()
                                            [-1])))
         print(json.dumps({"root": rows[-1][0], **rows[-1][1]}), flush=True)
-    for k in [k for k in rows[0][1] if k.endswith("_ms")]:
+    keys = dict.fromkeys(k for _, r in rows for k in r if k.endswith("_ms"))
+    for k in keys:
         cells = []
         for _, r in rows:
             v = r.get(k, float("nan"))
             cells.append("/".join(f"{x:.4f}" for x in v)
                          if isinstance(v, list) else f"{v:.6f}")
-        print(f"{k:18s} " + "  ".join(cells))
-    print(f"{'lse_L8':18s} " + "  ".join(json.dumps(r["lse_L8"])
-                                           for _, r in rows))
-    from nanopore_dna_storage_tpu_torch.probes import merge_roofline
-    for root, r in rows:
-        mix = merge_roofline.stream_mix(merge_roofline.sass(r["probes_lib"]))
-        print(json.dumps({"root": root, "stream_sass_per_element_round": mix}))
+        print(f"{k:30s} " + "  ".join(cells))
+    if "lse" in args.points:
+        print(f"{'lse_L8':18s} " + "  ".join(json.dumps(r["lse_L8"])
+                                               for _, r in rows))
+    if "probes" in args.points:
+        from nanopore_dna_storage_tpu_torch.probes import merge_roofline
+        for root, r in rows:
+            mix = merge_roofline.stream_mix(merge_roofline.sass(
+                r["probes_lib"]))
+            print(json.dumps({"root": root,
+                              "stream_sass_per_element_round": mix}))
     return 0
 
 

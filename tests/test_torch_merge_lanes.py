@@ -24,8 +24,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
-from hypothesis import strategies as st
 
 from nanopore_dna_storage_tpu_torch.probes import merge_roofline as mr
 from test_torch_lse import tree_pop
@@ -147,24 +145,6 @@ def test_lane_model_ties_and_neg_inf_columns(hashes):
         for stage in (False, True):
             got = merge_lanes(x, h1, h2, ROUNDS, lanes, stage)
             assert np.array_equal(_bits(got), _bits(want))
-
-
-SCORES = st.sampled_from([NEG, np.float32(-0.0), np.float32(0.0),
-                          np.float32(-1.0), np.float32(2.0)]) | st.floats(
-    -4, 4, width=32)
-
-
-@settings(max_examples=200, deadline=None)
-@given(st.lists(SCORES, min_size=64, max_size=64),
-       st.sampled_from(LANES))
-def test_cross_lane_argmax_is_numpys(scores, lanes):
-    """The lanes' trees and the butterfly pick numpy's first argmax of the
-    64 scores (ties, -0.0 against +0.0, all -inf), and its score's bits."""
-    x = np.array(scores, np.float32)[:, None]
-    best, f = lane_argmax(lanes_of(x, lanes, NEG), lanes)
-    i = int(np.argmax(x[:, 0]))
-    assert f[0] == i
-    assert best.view(np.int32)[0] == x[i].view(np.int32)[0]
 
 
 # A cut of ``cuobjdump -sass`` output in its layout: a kernel with a loop
