@@ -73,7 +73,8 @@ Phases, each fatal on failure:
    0 before, which also gives the fori rates (both placements at both NQ,
    and ``local`` at ``regs``'s residency); the reshape copy bit-equal at
    a few odd sizes, and at [8, 8, 1,048,576] timed beside ``clone`` and its
-   bound;
+   bound; the launch floor at one thread and at the grids of dynrow,
+   int16, reshape and alias (``grid_launch_floor_ms``);
 7. logsumexp path combining through its flat-merge kernel
    (``acs_block_lse``, ``csrc/lva_lse.cu``) at the headline config: the
    kernel bit-equal to its plain version on one read at B=1 (blocks over
@@ -83,7 +84,17 @@ Phases, each fatal on failure:
    of phase 3's first batch at B=4, one block timed there; then phase 3's
    32 reads through ``PipelineDecoder(..., path_combine="logsumexp")``,
    which must recover the file byte for byte with one lse launch per block
-   step and no K-way launch.
+   step and no K-way launch;
+8. the basecaller chain at the published widths (``models/flipflop.py``
+   ``FlipflopNet`` on seeded ``init_params``, ``ops/fwdbwd.py``,
+   ``ops/crf_decode.py``): 32 reads of experiment 7 from
+   ``simulate_posts_signal``; the same signals stage by stage on the card
+   and through the CPU, transitions and posteriors within ``CHAIN_TOL``,
+   Viterbi paths equal on the card's posteriors and on tie-heavy integer
+   ones; the posteriors through ``PipelineDecoder.decode_posts`` at L = 8
+   with one K1 launch per block step; ``Basecaller.basecall`` on the raw
+   signals writing a FASTQ with qualities in 33..126; each stage timed,
+   then profiled for its device operations.
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
@@ -96,13 +107,16 @@ per SM, its bound and its share of it), ``{"lva_acs_lse": {...}}`` (the
 same for the logsumexp kernel, its bound's three terms and the lse path's
 s/read), ``{"roofline": {...}}``,
 ``{"lowering": {...}}`` (the launch floor, the fori rates, kernel info
-and times by lane count, and P7's times), the card's name
+and times by lane count, and P7's times), ``{"basecall": {...}}`` (phase
+8's errors against the CPU, each stage's seconds, device operations,
+device time, idle share and peak memory, the decode's), the card's name
 and power limit, and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -120,6 +134,12 @@ try:
     from nanopore_dna_storage_tpu_torch import cli
     from nanopore_dna_storage_tpu_torch.config import (ConvCodeConfig,
                                                        DecodeConfig)
+    from nanopore_dna_storage_tpu_torch.models.flipflop import (
+        FlipflopConfig, FlipflopNet, init_params)
+    from nanopore_dna_storage_tpu_torch.ops.crf_decode import \
+        viterbi_flipflop_batch
+    from nanopore_dna_storage_tpu_torch.ops.fwdbwd import \
+        batched_transition_posteriors
     from nanopore_dna_storage_tpu_torch.ops import _build, lva_acs, lva_decode
     from nanopore_dna_storage_tpu_torch.ops.lva import LVADecoder
     from nanopore_dna_storage_tpu_torch.ops.lva_consts import sel_format
@@ -127,8 +147,11 @@ try:
                                                          experiment)
     from nanopore_dna_storage_tpu_torch.pipeline.decode import (
         PipelineDecoder, majority_vote, recover_file)
-    from nanopore_dna_storage_tpu_torch.pipeline.simulate import \
-        simulate_posts
+    from nanopore_dna_storage_tpu_torch.pipeline.basecall import (
+        Basecaller, write_fastq)
+    from nanopore_dna_storage_tpu_torch.pipeline.simulate import (
+        signal_batch, simulate_posts, simulate_posts_signal,
+        simulate_raw_reads)
     from nanopore_dna_storage_tpu_torch.probes import (expand, lowering,
                                                        merge_roofline,
                                                        mxu_expand, treepop)
@@ -148,6 +171,16 @@ LSE_CHECK_EVERY = 16
 # phase 7b: the lse kernel's L <= 8 bucket below its full list size, and
 # its flat L <= 16 bucket
 LSE_LIST_SIZES = (3, 5, 12)
+# phase 8: reads of experiment 7 through the basecaller chain at the
+# published widths, decoded in batches as phase 3 decodes (each read's
+# selections take ~2.7 GB at ~520 blocks)
+CHAIN_READS = 32
+CHAIN_BATCH = 8
+# phase 8b: the card's transitions and posteriors against the CPU's,
+# absolute and relative: the same float32 chain, its products summed in
+# another order by cuBLAS and by the CPU's BLAS, through five recurrent
+# layers of ~520 steps (the CPU against the JAX package: 2.4e-6)
+CHAIN_TOL = 1e-4
 # every kernel library and its sources in csrc/
 LIBS = {"lva_acs": ["lva_acs.cu"], "lva_lse": ["lva_lse.cu"],
         "probes": ["probes.cu"], "expand": ["expand.cu"],
@@ -1504,6 +1537,19 @@ def phase_lowering(peak: float, floor_us: float):
                 f"{bms:.3e} ms by {by} (CUDA graphs of "
                 f"{expand.GRAPH_CALLS} calls)")
 
+    # the launch floor at one thread and at each one-thread-an-element
+    # kernel's own grid, taken side by side
+    grid_floor_us = {"one_thread": lo.launch_floor_us()}
+    for case in lo.CASES:
+        if case.name in lo.GRID_CASES:
+            grid_floor_us[case.name] = lo.launch_floor_us(
+                blocks=lo.grid_blocks(case), threads=lo.BLOCK)
+    grids = {c.name: lo.grid_blocks(c) for c in lo.CASES
+             if c.name in lo.GRID_CASES}
+    log(f"phase 6: launch floor (an empty kernel, CUDA graphs of "
+        f"{expand.GRAPH_CALLS}) at one thread and at each kernel's grid "
+        f"(blocks of {lo.BLOCK}: {grids}), us: {json.dumps(grid_floor_us)}")
+
     mx = mxu_expand
     x7, E7 = mx.p7_inputs()
     p7 = {}
@@ -1550,10 +1596,14 @@ def phase_lowering(peak: float, floor_us: float):
         "bound_ms": bound_ms, "bound_by": bound_by,
         # int16, fori and alias take several PyTorch calls each
         "library_ms": lib_ms, "launch_floor_ms": floor_us / 1e3,
+        **({"grid_launch_floor_ms": grid_floor_us[k] / 1e3}
+           if k in grid_floor_us else {}),
         **(large if k == "reshape" else {})}
         for k, (ms, plain_ms, lib_ms, bound_ms, bound_by, replaces)
         in timed.items()]
-    return entries, {"launch_floor_us": floor_us, "fori_rates": rates,
+    return entries, {"launch_floor_us": floor_us,
+                     "grid_launch_floor_us": grid_floor_us,
+                     "fori_rates": rates,
                      "fori_info": fori_info, "fori_regs_by_lanes": lanes_ms,
                      "p7": p7, "reshape_large": large}
 
@@ -1671,6 +1721,234 @@ def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
     return entry, line
 
 
+def device_ops(prof):
+    """(operations the device ran, their device time in ms) in one
+    ``torch.profiler`` window: kernels, copies and fills."""
+    n, us = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += e.count
+            us += getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
+    return n, us / 1e3
+
+
+def chain_stages(net, sig, ns):
+    """The basecaller chain on the padded batch ``sig`` [B, T] with ``ns``
+    [B] samples a read, as (name, fn) pairs, each fn taking the previous
+    stage's result: the stages of ``FlipflopNet.forward`` (the conv, each
+    GRU layer, the head with its partition), then the forward-backward
+    posteriors and the Viterbi paths over each read's own blocks."""
+    nblk = -(-ns // net.cfg.stride)
+    return [("conv", lambda _: net.features(sig)),
+            *[(f"gru{i}_{d}", lambda x, i=i: net.layer(i, x))
+              for i, d in enumerate(net.cfg.layer_dirs)],
+            ("head_partition", lambda x: net.head(x, ns)),
+            ("fwdbwd", lambda tr: batched_transition_posteriors(tr, nblk)),
+            ("viterbi", lambda post: viterbi_flipflop_batch(post, nblk))]
+
+
+def run_chain(stages, profile=False) -> dict:
+    """The stages in order on the card: {name: (result, seconds, peak
+    device bytes, device ops, device ms)}, each stage between two
+    synchronisations; the device counts only under ``profile`` (else
+    None)."""
+    out, x = {}, None
+    for name, fn in stages:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) \
+            if profile else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with ctx as prof:
+            x = fn(x)
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out[name] = (x, sec, torch.cuda.max_memory_allocated(),
+                     *(device_ops(prof) if profile else (None, None)))
+    return out
+
+
+def held(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Fails unless ``got`` (the card's) and ``want`` (the CPU's) agree to
+    ``CHAIN_TOL``, -inf where the other is; returns the max |difference|
+    over finite values."""
+    got = got.cpu()
+    if got.shape != want.shape or not torch.equal(torch.isneginf(got),
+                                                  torch.isneginf(want)):
+        fail(f"{name}: the card's and the CPU's differ in shape or -inf")
+    if not bool(torch.isfinite(got[~torch.isneginf(got)]).all()):
+        fail(f"{name}: NaN or +inf on the card")
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max())
+    if not torch.allclose(got[fin], want[fin], rtol=CHAIN_TOL,
+                          atol=CHAIN_TOL):
+        fail(f"{name}: the card's differ from the CPU's by {err}")
+    return err
+
+
+def phase_basecall(enc, exp, gpu: str):
+    """Phase 8: the basecaller chain at the published widths (conv winlen
+    19, stride 2, 256 filters, five 256-unit GRU layers b / f / b / f / b)
+    on ``init_params`` weights from ``torch.Generator`` seed ``SEED``.
+    (a) ``simulate_posts_signal`` makes ``CHAIN_READS`` reads of
+    experiment 7 from ``np.random.default_rng(SEED)`` on the card; (b) the
+    same reads' signals (``simulate_raw_reads``, ``signal_batch``) through
+    the chain stage by stage on the card, its transitions and posteriors
+    held against the port's CPU run on the same signals and weights
+    (``CHAIN_TOL``), its Viterbi paths equal to the CPU's on the card's
+    posteriors, and on tie-heavy integer posteriors, and (a)'s posteriors
+    equal to (b)'s; (c) (a)'s posteriors decoded by
+    ``PipelineDecoder.decode_posts`` at L = 8, max deviation 20, in
+    batches of ``CHAIN_BATCH``, with one K1 launch per block step (the
+    counts set to 0 just before); (d) ``Basecaller.basecall`` on the raw
+    signals writes a FASTQ whose qualities lie in 33..126; (e) each stage
+    timed again, then under ``torch.profiler`` for its device operations
+    and device time, and the decode of the first batch profiled. Returns
+    the K1 launches of (c) and the ``basecall`` line."""
+    cfg = FlipflopConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(SEED))
+    net = FlipflopNet(cfg, params, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    posts, rcs, ids = simulate_posts_signal(
+        enc.oligos, CHAIN_READS, np.random.default_rng(SEED), net)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    nblks = [len(p) for p in posts]
+    for p in posts:
+        lse = torch.logsumexp(torch.from_numpy(p).reshape(len(p), 40), 1)
+        if not (np.isfinite(p).all() and p.shape[1:] == (5, 8)
+                and float(lse.abs().max()) < CHAIN_TOL):
+            fail("a posterior block is not finite, [5, 8] and normalised")
+    log(f"phase 8a: simulate_posts_signal: {CHAIN_READS} reads of "
+        f"experiment 7 in {sim_s:.3f} s, {min(nblks)}-{max(nblks)} blocks")
+
+    raws, rcs_b, ids_b = simulate_raw_reads(
+        enc.oligos, CHAIN_READS, np.random.default_rng(SEED))
+    if not (np.array_equal(rcs_b, rcs) and np.array_equal(ids_b, ids)):
+        fail("simulate_raw_reads drew other reads than simulate_posts_signal")
+    sig, ns = signal_batch(raws)
+    sig_h, ns_h = torch.from_numpy(sig), torch.from_numpy(ns)
+    stages = chain_stages(net, sig_h.cuda(), ns_h.cuda())
+    first = run_chain(stages)
+    trans, post = first["head_partition"][0], first["fwdbwd"][0]
+    paths, scores = first["viterbi"][0]
+    t0 = time.perf_counter()
+    cpu_net = FlipflopNet(cfg, params, device="cpu")
+    nblk_h = -(-ns_h // cfg.stride)
+    trans_h = cpu_net(sig_h, ns_h)
+    post_h = batched_transition_posteriors(trans_h, nblk_h)
+    cpu_s = time.perf_counter() - t0
+    err = {"transitions": held("transitions", trans, trans_h)}
+    valid = torch.arange(post.shape[1])[None] < nblk_h[:, None]
+    err["posteriors"] = held("posteriors", post[valid.cuda()],
+                             post_h[valid])
+    err["simulate_posts_signal"] = max(
+        held(f"read {i} of simulate_posts_signal", post[i, :n],
+             torch.from_numpy(p)) for i, (p, n) in enumerate(
+            zip(posts, nblks)))
+    paths_h, scores_h = viterbi_flipflop_batch(post.cpu(), nblk_h)
+    if not torch.equal(paths_h, paths.cpu()):
+        fail("the card's Viterbi paths differ from the CPU's on the card's "
+             "posteriors")
+    err["viterbi_scores"] = float((scores.cpu() - scores_h).abs().max())
+    ties = torch.from_numpy(np.random.default_rng(SEED).integers(
+        -2, 1, (4, 64, 5, 8)).astype(np.float32))
+    nties = torch.tensor([64, 64, 40, 3])
+    tp, ts = viterbi_flipflop_batch(ties.cuda(), nties.cuda())
+    tp_h, ts_h = viterbi_flipflop_batch(ties, nties)
+    if not (torch.equal(tp.cpu(), tp_h) and torch.equal(ts.cpu(), ts_h)):
+        fail("the card breaks Viterbi ties otherwise than the CPU")
+    log(f"phase 8b: the chain at B={CHAIN_READS}, T={sig.shape[1]} samples, "
+        f"{trans.shape[1]} blocks: the card's transitions and posteriors "
+        f"within {CHAIN_TOL} of the CPU's ({cpu_s:.2f} s there), max "
+        f"|error| {json.dumps(err)}; Viterbi paths equal on the card's "
+        f"posteriors and on ties")
+
+    num_oligos = enc.num_oligos_data + enc.num_oligos_rs
+    pdec = PipelineDecoder(exp, 8, 20, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lva_acs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    crc = 0
+    for lo in range(0, CHAIN_READS, CHAIN_BATCH):
+        out = pdec.decode_posts(posts[lo:lo + CHAIN_BATCH],
+                                rcs[lo:lo + CHAIN_BATCH], num_oligos)
+        crc += int((out.index >= 0).sum())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches, decode_peak = lva_acs.LAUNCHES, torch.cuda.max_memory_allocated()
+    log(f"phase 8c: decode_posts of the {CHAIN_READS} reads in batches of "
+        f"{CHAIN_BATCH}: {decode_s:.3f} s, {launches} K1 launches for "
+        f"{pdec.steps} block steps, {crc} pass CRC (random weights), peak "
+        f"device memory {decode_peak / 2**30:.2f} GiB")
+    if launches == 0 or launches != pdec.steps:
+        fail(f"{launches} K1 launches for {pdec.steps} block steps")
+
+    t0 = time.perf_counter()
+    calls = Basecaller(net, device="cuda").basecall(
+        [f"read{i}" for i in range(CHAIN_READS)], raws)
+    basecall_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = pathlib.Path(tmp) / "calls.fastq"
+        write_fastq(str(fq), calls)
+        lines = fq.read_text().splitlines()
+    if len(lines) != 4 * CHAIN_READS:
+        fail(f"the FASTQ has {len(lines)} lines for {CHAIN_READS} reads")
+    for seq, qual in zip(lines[1::4], lines[3::4]):
+        if len(seq) != len(qual) or not set(seq) <= set("ACGT") or not all(
+                33 <= ord(c) <= 126 for c in qual):
+            fail(f"a FASTQ record is malformed: {seq!r} {qual!r}")
+    bases = sum(len(c.sequence) for c in calls)
+    if bases == 0:
+        fail("the basecaller called no base")
+    log(f"phase 8d: Basecaller.basecall on the raw signals: {basecall_s:.3f} "
+        f"s, {bases} bases, a FASTQ of {CHAIN_READS} records, qualities in "
+        f"33..126")
+
+    timed = run_chain(stages)
+    prof = run_chain(stages, profile=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+        PipelineDecoder(exp, 8, 20, device="cuda").decode_posts(
+            posts[:CHAIN_BATCH], rcs[:CHAIN_BATCH], num_oligos)
+        torch.cuda.synchronize()
+    stage_line = {}
+    for name, (_, sec, peak, _, _) in timed.items():
+        ops, dev_ms = prof[name][3:]
+        stage_line[name] = {
+            "s": sec, "device_ops": ops, "device_ms": dev_ms,
+            "idle_share": 1 - dev_ms / 1e3 / sec if ops else None,
+            "peak_gib": peak / 2**30}
+        log(f"phase 8e: {name}: {sec:.4f} s, {ops} device ops, device "
+            f"{dev_ms:.3f} ms, peak {peak / 2**30:.3f} GiB")
+    dec_ops, dec_ms = device_ops(p)
+    chain_s = sum(v["s"] for v in stage_line.values())
+    chain_ops = sum(v["device_ops"] for v in stage_line.values())
+    chain_ms = sum(v["device_ms"] for v in stage_line.values())
+    log(f"phase 8e: the chain {chain_s:.3f} s, {chain_ops} device ops, "
+        f"device {chain_ms:.2f} ms (idle share "
+        f"{1 - chain_ms / 1e3 / chain_s:.4f}); decode {decode_s:.3f} s for "
+        f"{CHAIN_READS} reads, its first batch {dec_ops} device ops, device "
+        f"{dec_ms:.2f} ms")
+    line = {"gpu": gpu, "reads": CHAIN_READS, "T": sig.shape[1],
+            "blocks": trans.shape[1], "tolerance": CHAIN_TOL,
+            "max_abs_err": err, "simulate_posts_signal_s": sim_s,
+            "cpu_chain_s": cpu_s, "stages": stage_line,
+            "chain_s": chain_s, "chain_device_ops": chain_ops,
+            "chain_device_ms": chain_ms,
+            "decode": {"s": decode_s, "batch": CHAIN_BATCH,
+                       "k1_launches": launches, "steps": pdec.steps,
+                       "crc_pass": crc, "peak_gib": decode_peak / 2**30,
+                       "first_batch_device_ops": dec_ops,
+                       "first_batch_device_ms": dec_ms},
+            "basecall_s": basecall_s, "bases": bases}
+    return launches, line
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1752,6 +2030,10 @@ def main() -> int:
     lse_entry, lse_line = phase_lse(enc, exp, data, headline, posts[0], gpu)
     log(f"phase 7: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    basecall_launches, basecall_line = phase_basecall(enc, exp, gpu)
+    log(f"phase 8: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs and lva_acs_lse times below: one block step at the main "
         f"path's B={B}")
@@ -1760,6 +2042,7 @@ def main() -> int:
     log(json.dumps({"roofline": roofline}))
     log(json.dumps({"probes": probes_line}))
     log(json.dumps({"lowering": lowering_rates}))
+    log(json.dumps({"basecall": basecall_line}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -1767,6 +2050,8 @@ def main() -> int:
         "source": "nanopore_dna_storage_tpu_torch/csrc/lva_acs.cu",
         "replaces": "nanopore_dna_storage_tpu/ops/lva_pallas.py:929",
         "launches": launches,
+        # phase 8's decode of the basecaller's posteriors
+        "basecall_launches": basecall_launches,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

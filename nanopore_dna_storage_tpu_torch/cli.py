@@ -6,7 +6,11 @@ Counterpart of ``nanopore_dna_storage_tpu/cli.py`` ``sim-decode``
 (``_add_exp_args``, ``_experiment``, ``cmd_sim_decode``): the same flags and
 the same JSON line, plus ``--device`` (default ``cuda``; no fallback to the
 CPU) and ``--batch``, the number of reads decoded together. The reference's
-other commands are not ported yet.
+other commands are not ported yet; its ``simulate-signal`` trains a
+basecaller first, and waits for the trainer. The basecaller chain itself is
+ported as a library (``pipeline/basecall.py`` ``Basecaller``,
+``pipeline/simulate.py`` ``simulate_and_decode_signal``), as the reference
+has no basecall command either.
 """
 from __future__ import annotations
 

@@ -33,7 +33,8 @@
 //
 // What bounds them on this card: at the script's shapes (32 KB to 512 KB)
 // dynrow, int16, copy and alias are a few microseconds of launch latency
-// (`empty_kernel` below measures the launch alone); with more data they
+// (`empty_kernel` below measures the launch alone, at one thread or at
+// their grids); with more data they
 // would be bound by bytes. fori is bound by operations: the function needs
 // a first argmax (3 per candidate) and the winner's updates, ~3 NQ + 8 per
 // column and round. local executes only that, from local memory at 32
@@ -437,9 +438,12 @@ extern "C" int lowering_fori_info(int placement, int nq, int lanes,
   return static_cast<int>(e);
 }
 
-// The empty kernel, one thread: the launch floor.
-extern "C" int lowering_empty_launch(void* stream) {
-  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+// The empty kernel at `blocks` blocks of `threads`: the launch floor, at
+// one thread or at another kernel's grid.
+extern "C" int lowering_empty_launch(int blocks, int threads, void* stream) {
+  if (blocks < 1 || threads < 1 || threads > 1024)
+    return static_cast<int>(invalid());
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -220,7 +220,8 @@ def load_lowering() -> ctypes.CDLL:
         lib.lowering_fori_info.argtypes = [i, i, i, ctypes.POINTER(i)]
         # stale, x, s, then P, W, row and the stream
         lib.lowering_alias_launch.argtypes = [p, p, p, i, i, i, p]
-        lib.lowering_empty_launch.argtypes = [p]  # the stream
+        # blocks, threads a block and the stream
+        lib.lowering_empty_launch.argtypes = [i, i, p]
         for fn in (lib.lowering_dynrow_launch, lib.lowering_int16_launch,
                    lib.lowering_copy_launch, lib.lowering_fori_launch,
                    lib.lowering_fori_lanes, lib.lowering_fori_info,

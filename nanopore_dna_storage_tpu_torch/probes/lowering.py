@@ -32,7 +32,8 @@ kernels of ``csrc/lowering.cu``, any other device raises.
 runs the cases (all by default; ``fori`` also selects ``fori.k1``), prints
 each check, OK or WRONG against the numpy result the script checks, with
 the device time per call and the launch floor (an empty kernel,
-``launch_floor_us``), then the fori rates at both NQ over ``FORI_COPIES``
+``launch_floor_us``: one thread, and each of dynrow's, int16's, reshape's
+and alias's grids), then the fori rates at both NQ over ``FORI_COPIES``
 copies of the columns: ``regs``, ``local``, and ``local`` capped at
 ``regs``'s resident threads per SM, which splits the placement's gain from
 the residency's. It exits non-zero if any case or rate is wrong.
@@ -57,6 +58,8 @@ PLACEMENTS = ("regs", "local")
 # (NQ, R) of the fori probe: the script's, and the ACS kernel's merge at
 # L = 8 (8L candidates, L rounds); the kernel is built for these NQ
 FORI_POINTS = ((32, 18), (64, 8))
+# threads a block of every kernel in csrc/lowering.cu
+BLOCK = 128
 # lanes a column of fori regs, the kernels built
 LANES = (1, 2, 4, 8)
 # copies of the 1024 columns for the fori rates: 262,144 threads, about two
@@ -256,21 +259,39 @@ def fori_info(placement: str, nq: int, lanes: int = 1) -> dict:
             "threads_per_sm": out[2]}
 
 
-def launch_floor_us(device="cuda") -> float:
-    """The launch floor: the device time of one empty kernel (one thread)
-    on ``device``, replayed from a CUDA graph of ``expand.GRAPH_CALLS``
+def launch_floor_us(device="cuda", blocks: int = 1,
+                    threads: int = 1) -> float:
+    """The launch floor: the device time of one empty kernel on ``device``,
+    one thread or ``blocks`` blocks of ``threads`` (a kernel's own grid,
+    ``grid_blocks``), replayed from a CUDA graph of ``expand.GRAPH_CALLS``
     launches (``expand.graph_us``), in microseconds."""
     dev = torch.device(device)
     lib = load_lowering()
 
     def empty():
         with torch.cuda.device(dev):
-            err = lib.lowering_empty_launch(_stream(dev))
+            err = lib.lowering_empty_launch(blocks, threads, _stream(dev))
         if err != 0:
             raise RuntimeError("empty launch failed: "
                                + lib.lowering_error_string(err).decode())
 
     return expand.graph_us(empty)
+
+
+# the cases whose kernels launch one thread per element (``grid_blocks``)
+GRID_CASES = ("dynrow", "int16", "reshape", "alias")
+
+
+def grid_blocks(case: "Case") -> int:
+    """The blocks of ``BLOCK`` threads that ``case``'s kernel launches at
+    the script's shape (dynrow, int16, reshape, alias): one thread per
+    output element, per 16-byte vector for the reshape copy, per window
+    element for alias, as the launchers of ``csrc/lowering.cu`` size them."""
+    shape = case.shapes[{"dynrow": 1, "alias": 2}.get(case.name, 0)]
+    items = {"dynrow": shape[-1], "int16": int(np.prod(shape)),
+             "reshape": int(np.prod(shape)) // 4,
+             "alias": ALIAS_WINDOW * int(np.prod(shape[1:]))}[case.name]
+    return -(-items // BLOCK)
 
 
 def reshape_ref(x: torch.Tensor) -> torch.Tensor:
@@ -573,6 +594,11 @@ def main(argv=None) -> Tuple[bool, list]:
     ok = all([run(c) for c in cases])
     print(f"launch floor (an empty kernel): {launch_floor_us():.3f} us/call",
           flush=True)
+    for c in cases:
+        if c.name in GRID_CASES:
+            us = launch_floor_us(blocks=grid_blocks(c), threads=BLOCK)
+            print(f"launch floor at {c.name}'s grid ({grid_blocks(c)} blocks "
+                  f"of {BLOCK}): {us:.3f} us/call", flush=True)
     rates = []
     if any(c.name.startswith("fori") for c in cases):
         rates = fori_rates()

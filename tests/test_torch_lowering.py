@@ -260,3 +260,14 @@ def test_select_cases():
         ["int16", "alias"]
     with pytest.raises(ValueError, match="no case"):
         lo.select(["p9"])
+
+
+def test_grid_blocks_are_the_launchers_grids():
+    """The empty kernel is timed at the grids that dynrow, int16, reshape
+    and alias launch at the script's shapes: blocks of 128 threads over a
+    row of 1024, 64 x 1024 elements, 65,536 floats as 16-byte vectors, and
+    the 4 window rows of 8 x 256."""
+    grids = {c.name: lo.grid_blocks(c) for c in lo.CASES
+             if c.name in lo.GRID_CASES}
+    assert grids == {"dynrow": 8, "int16": 512, "reshape": 128, "alias": 64}
+    assert lo.BLOCK == 128
