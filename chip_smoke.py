@@ -94,7 +94,21 @@ Phases, each fatal on failure:
    ones; the posteriors through ``PipelineDecoder.decode_posts`` at L = 8
    with one K1 launch per block step; ``Basecaller.basecall`` on the raw
    signals writing a FASTQ with qualities in 33..126; each stage timed,
-   then profiled for its device operations.
+   then profiled for its device operations;
+9. the scale-out decode (``parallel/``) at the headline config on phase
+   3's 32 reads written as ``.post`` files: ``ShardedDecoder.decode`` at
+   world 1 on the first batch's forward reads equal to
+   ``LVADecoder.decode`` and the host CRC/index check, and again over a
+   one-rank nccl group in this process, its count reduced and its shards
+   gathered on the card, equal to the world-1 result; its on-card
+   classification timed against the host's; the gated decode job through
+   ``python -m nanopore_dna_storage_tpu_torch.parallel.multihost`` as one
+   nccl rank and as two gloo ranks sharing ``cuda:0``, each rank launching
+   K1 once per block step; their list files identical and equal to
+   ``PipelineDecoder.decode_posts_auto_orientation(gated=True)`` in
+   process, the ``info_*`` shards naming every read once, the CRC counts
+   equal; ``cli rs-recover`` on the lists recovering the file byte for
+   byte, and ``cli error-rate`` on them.
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
@@ -109,8 +123,13 @@ s/read), ``{"roofline": {...}}``,
 ``{"lowering": {...}}`` (the launch floor, the fori rates, kernel info
 and times by lane count, and P7's times), ``{"basecall": {...}}`` (phase
 8's errors against the CPU, each stage's seconds, device operations,
-device time, idle share and peak memory, the decode's), the card's name
-and power limit, and ``{"kernels": [...]}``; the last is
+device time, idle share and peak memory, the decode's),
+``{"parallel": {...}}`` (phase 9: each leg's wall seconds and s/read,
+each rank's K1 launches against its block steps, process start, group
+start and job seconds and peak memory, the classification's times and
+device operations), the card's name and power limit, and
+``{"kernels": [...]}`` (K1's entry adds phase 9's launches as
+``parallel_launches``); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
 """
@@ -132,8 +151,11 @@ import torch
 
 try:
     from nanopore_dna_storage_tpu_torch import cli
+    from nanopore_dna_storage_tpu_torch.coding.framing import (
+        check_and_extract, frame_oligos)
     from nanopore_dna_storage_tpu_torch.config import (ConvCodeConfig,
                                                        DecodeConfig)
+    from nanopore_dna_storage_tpu_torch.io.post import pack_posts, write_post
     from nanopore_dna_storage_tpu_torch.models.flipflop import (
         FlipflopConfig, FlipflopNet, init_params)
     from nanopore_dna_storage_tpu_torch.ops.crf_decode import \
@@ -143,6 +165,8 @@ try:
     from nanopore_dna_storage_tpu_torch.ops import _build, lva_acs, lva_decode
     from nanopore_dna_storage_tpu_torch.ops.lva import LVADecoder
     from nanopore_dna_storage_tpu_torch.ops.lva_consts import sel_format
+    from nanopore_dna_storage_tpu_torch.parallel import launch, multihost
+    from nanopore_dna_storage_tpu_torch.parallel.mesh import ShardedDecoder
     from nanopore_dna_storage_tpu_torch.pipeline import (encode_bytes,
                                                          experiment)
     from nanopore_dna_storage_tpu_torch.pipeline.decode import (
@@ -181,6 +205,10 @@ CHAIN_BATCH = 8
 # another order by cuBLAS and by the CPU's BLAS, through five recurrent
 # layers of ~520 steps (the CPU against the JAX package: 2.4e-6)
 CHAIN_TOL = 1e-4
+# phase 9: phase 3's reads as .post files, decoded by the scale-out job
+# PARALLEL_BATCH a step (each read's selections take ~2.1 GB on the card)
+PARALLEL_READS = 32
+PARALLEL_BATCH = 8
 # every kernel library and its sources in csrc/
 LIBS = {"lva_acs": ["lva_acs.cu"], "lva_lse": ["lva_lse.cu"],
         "probes": ["probes.cu"], "expand": ["expand.cu"],
@@ -1949,6 +1977,277 @@ def phase_basecall(enc, exp, gpu: str):
     return launches, line
 
 
+def sharded_nccl(batch, nblks, exp, num_oligos: int, want):
+    """Phase 9a over a one-rank nccl group in this process:
+    ``ShardedDecoder.decode`` reduces its CRC count and gathers its shards
+    with nccl collectives on the card, and must equal the world-1 result
+    ``want``, with one K1 launch per block step. The group is gone on
+    return. Returns (K1 launches, block steps, seconds)."""
+    multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0,
+                         backend="nccl", device="cuda:0", timeout=120)
+    try:
+        sd = ShardedDecoder(exp, 8, rc=False, max_deviation=20,
+                            device="cuda:0")
+        torch.cuda.synchronize()
+        lva_acs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = sd.decode(batch, nblks, num_oligos)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n, steps = lva_acs.LAUNCHES, sd.inner.steps
+    finally:
+        torch.distributed.destroy_process_group()
+    if n == 0 or n != steps:
+        fail(f"phase 9a: nccl group: {n} K1 launches for {steps} block "
+             f"steps")
+    if not (all(np.array_equal(getattr(got, a), getattr(want, a))
+                for a in ("msgs", "scores", "ok", "index"))
+            and got.crc_pass_total == want.crc_pass_total):
+        fail("phase 9a: ShardedDecoder over a 1-rank nccl group differs "
+             "from world 1")
+    return n, steps, seconds
+
+
+def run_job(post_dir, outdir, ranks: int, backend: str) -> dict:
+    """Phase 9b/9c: the decode job over ``ranks`` processes on ``cuda:0``
+    through ``parallel.launch`` (``python -m ...parallel.multihost`` a
+    rank) with the group's ``backend``, gated, at the headline config;
+    fails unless every rank exits 0 and prints its result record. Returns
+    the leg's wall seconds and the records (each with its process start:
+    spawn to ``main``)."""
+    args = ["--post-dir", str(post_dir), "--outdir", str(outdir),
+            "--experiment", "7", "--list-size", "8", "--max-deviation",
+            "20", "--local-batch", str(PARALLEL_BATCH), "--device", "cuda:0",
+            "--dist-backend", backend, "--timeout", "300"]
+    t_spawn = time.time()
+    t0 = time.perf_counter()
+    done = launch.run_local(ranks, args, timeout=600)
+    wall = time.perf_counter() - t0
+    recs = []
+    for rank, (code, out) in enumerate(done):
+        lines = [ln for ln in out.splitlines() if ln.startswith('{"rank"')]
+        if code != 0 or len(lines) != 1:
+            fail(f"phase 9: {backend} rank {rank} of {ranks} exited {code}:"
+                 f"\n{out[-3000:]}")
+        rec = json.loads(lines[0])
+        rec["start_s"] = rec.pop("t_main") - t_spawn
+        recs.append(rec)
+    return {"wall_s": wall, "ranks": recs}
+
+
+def check_job(leg: str, job: dict, n_reads: int) -> None:
+    """Every rank launched K1 once per block step and reports the same
+    global CRC count, the sum of the ranks' own; the ranks' reads add up."""
+    recs = job["ranks"]
+    for r in recs:
+        if r["k1_launches"] == 0 or r["k1_launches"] != r["steps"]:
+            fail(f"phase 9: {leg} rank {r['rank']}: {r['k1_launches']} K1 "
+                 f"launches for {r['steps']} block steps")
+    crc = {r["crc_pass"] for r in recs}
+    if len(crc) != 1 or crc != {sum(r["local_crc_pass"] for r in recs)} or \
+            sum(r["reads"] for r in recs) != n_reads:
+        fail(f"phase 9: {leg}: the ranks' counts disagree: {recs}")
+    job["crc_pass"] = crc.pop()
+    job["s_per_read"] = job["wall_s"] / n_reads
+
+
+def list_files(outdir) -> dict:
+    return {p.name: p.read_text() for p in pathlib.Path(outdir).glob(
+        "list_*")}
+
+
+def phase_parallel(enc, exp, data: bytes, gpu: str):
+    """Phase 9: the scale-out decode (``parallel/``) at the headline
+    config on phase 3's 32 reads, written as ``.post`` files. (a)
+    ``ShardedDecoder.decode`` in this process at world 1 on phase 3's
+    first batch's forward reads, equal to ``LVADecoder.decode`` and the
+    host ``check_and_extract`` under the Pallas path's masking; the same
+    call over a one-rank nccl group (its ``all_reduce`` and
+    ``all_gather`` on the card) equal to that; the classification timed
+    on the card and on the host; (b) the gated job
+    as one nccl rank and (c) as two gloo ranks, both on ``cuda:0``; (d)
+    their list files identical, file by file, and equal to the lists of
+    ``PipelineDecoder.decode_posts_auto_orientation(gated=True)`` in this
+    process, the ``info_*`` shards naming every read once, the CRC counts
+    equal; (e) ``cli rs-recover`` on (b)'s lists recovering the file byte
+    for byte, and ``cli error-rate`` on them. The K1 counts are set to 0
+    before (a) and (d) here and in every rank before its job, and each
+    must equal its block steps. Returns the K1 launches and the
+    ``parallel`` line."""
+    total = enc.num_oligos_data + enc.num_oligos_rs
+    rng = np.random.default_rng(SEED)
+    posts = [p for _ in range(PARALLEL_READS // 8)
+             for p in simulate_posts(enc.oligos, 8, rng)[0]]
+    launches = 0
+
+    # (a) world 1 in this process, on the first batch's forward reads
+    first, rcs, _ = simulate_posts(enc.oligos, 8, np.random.default_rng(SEED))
+    fwd = [p for p, r in zip(first, rcs) if not r]
+    batch, nblks = pack_posts(fwd)
+    sd = ShardedDecoder(exp, 8, rc=False, max_deviation=20, device="cuda")
+    torch.cuda.synchronize()
+    lva_acs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sd.decode(batch, nblks, total)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    a_launches, a_steps = lva_acs.LAUNCHES, sd.inner.steps
+    if a_launches == 0 or a_launches != a_steps:
+        fail(f"phase 9a: {a_launches} K1 launches for {a_steps} block steps")
+    launches += a_launches
+    msgs, sc, valid = sd.inner.decode(batch, nblks)
+    ok_h, index_h = check_and_extract(msgs, exp.framing, total, pad=exp.pad)
+    ok_h &= valid
+    if not (np.array_equal(res.msgs, msgs) and np.array_equal(res.ok, ok_h)
+            and np.array_equal(res.index, index_h)
+            and np.array_equal(res.scores, np.where(valid, sc, -np.inf))
+            and res.crc_pass_total == int(ok_h.any(axis=1).sum())):
+        fail("phase 9a: ShardedDecoder differs from LVADecoder.decode and "
+             "the host check_and_extract")
+    nccl_launches, nccl_steps, nccl_s = sharded_nccl(batch, nblks, exp,
+                                                     total, res)
+    launches += nccl_launches
+    sc_d, words_d, okend_d = sd.inner.decode_device(batch, nblks)
+    classify = lambda: sd.classify(words_d, sc_d, okend_d, total)  # noqa
+    classify_ms = cuda_ms(classify, reps=20, warmup=2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        classify()
+        torch.cuda.synchronize()
+    classify_ops, classify_dev_ms = device_ops(prof)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        check_and_extract(msgs, exp.framing, total, pad=exp.pad)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"phase 9a: ShardedDecoder at world 1, B={len(fwd)}: {sharded_s:.3f}"
+        f" s, {a_launches} K1 launches for {a_steps} block steps, "
+        f"{res.crc_pass_total} pass CRC; msgs, scores, ok and index equal "
+        f"to LVADecoder.decode and the host check; over a 1-rank nccl group "
+        f"{nccl_s:.3f} s, {nccl_launches} K1 launches for {nccl_steps} "
+        f"block steps, equal to world 1; classify on the card "
+        f"{classify_ms:.4f} ms ({classify_ops} device ops, "
+        f"{classify_dev_ms:.4f} ms of device time), the host check "
+        f"{host_ms:.4f} ms")
+
+    # the ranks are processes of their own on this card: hand them the
+    # memory this process's allocator keeps cached from earlier phases
+    del sd, sc_d, words_d, okend_d
+    torch.cuda.empty_cache()
+    parent_gib = torch.cuda.memory_reserved() / 2**30
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    log(f"phase 9: this process keeps {parent_gib:.2f} GiB reserved on the "
+        f"card while the ranks run; {free_gib:.2f} GiB free")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        post_dir = tmp / "posts"
+        post_dir.mkdir()
+        for i, p in enumerate(posts):
+            write_post(str(post_dir / f"read_{i}.post"), p)
+        jobs = {}
+        for leg, ranks, backend in (("nccl_1", 1, "nccl"),
+                                    ("gloo_2", 2, "gloo")):
+            jobs[leg] = run_job(post_dir, tmp / leg, ranks, backend)
+            check_job(leg, jobs[leg], len(posts))
+            launches += sum(r["k1_launches"] for r in jobs[leg]["ranks"])
+            log(f"phase 9{'b' if ranks == 1 else 'c'}: {leg}: "
+                f"{jobs[leg]['wall_s']:.3f} s for {len(posts)} reads = "
+                f"{jobs[leg]['s_per_read']:.4f} s/read, "
+                f"{jobs[leg]['crc_pass']} pass CRC; ranks "
+                f"{json.dumps(jobs[leg]['ranks'])}")
+
+        # (d) the two jobs' lists, and the in-process gated pick's
+        lists = {leg: list_files(tmp / leg) for leg in jobs}
+        if lists["nccl_1"] != lists["gloo_2"] or \
+                len(lists["nccl_1"]) != len(posts):
+            fail("phase 9d: the 1-rank nccl and 2-rank gloo jobs wrote "
+                 "different list files")
+        infos = {}
+        for leg, ranks in (("nccl_1", 1), ("gloo_2", 2)):
+            lines = [ln for pid in range(ranks) for ln in (
+                tmp / leg / f"info_{pid}.txt").read_text().splitlines()]
+            infos[leg] = dict(ln.split(" ") for ln in lines)
+            if sorted(infos[leg]) != sorted(
+                    f"read_{i}" for i in range(len(posts))) or \
+                    len(lines) != len(posts):
+                fail(f"phase 9d: {leg}'s info shards do not name every "
+                     f"read once")
+        if infos["nccl_1"] != infos["gloo_2"] or \
+                jobs["nccl_1"]["crc_pass"] != jobs["gloo_2"]["crc_pass"]:
+            fail("phase 9d: the jobs' orientations or CRC counts differ")
+        pdec = PipelineDecoder(exp, 8, 20, device="cuda")
+        torch.cuda.synchronize()
+        lva_acs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        crc, want = 0, {}
+        for lo in range(0, len(posts), PARALLEL_BATCH):
+            out, rc_used = pdec.decode_posts_auto_orientation(
+                posts[lo:lo + PARALLEL_BATCH], 1 << exp.framing.index_len,
+                gated=True)
+            crc += int((out.index >= 0).sum())
+            for j in range(len(rc_used)):
+                i = lo + j
+                want[f"list_{i}"] = "".join(
+                    "".join(map(str, m)) + "\n"
+                    for m, v in zip(out.msgs[j], out.valid[j]) if v)
+                if infos["nccl_1"][f"read_{i}"] != f"rc={bool(rc_used[j])}":
+                    fail(f"phase 9d: read_{i}'s orientation differs from "
+                         f"the in-process gated pick")
+        torch.cuda.synchronize()
+        inproc_s = time.perf_counter() - t0
+        d_launches = lva_acs.LAUNCHES
+        if d_launches == 0 or d_launches != pdec.steps:
+            fail(f"phase 9d: {d_launches} K1 launches for {pdec.steps} "
+                 f"block steps")
+        launches += d_launches
+        if lists["nccl_1"] != want or crc != jobs["nccl_1"]["crc_pass"]:
+            fail("phase 9d: the jobs' lists differ from the in-process "
+                 "decode_posts_auto_orientation(gated=True)")
+        log(f"phase 9d: the {len(posts)} list files of both jobs identical "
+            f"and equal to decode_posts_auto_orientation(gated=True) in "
+            f"this process ({inproc_s:.3f} s, {d_launches} K1 launches for "
+            f"{pdec.steps} block steps); {crc} pass CRC in each")
+
+        # (e) the list commands on (b)'s lists
+        infile = tmp / "data.bin"
+        infile.write_bytes(data)
+        oligos = tmp / "oligos.txt"
+        oligos.write_text("".join(
+            "".join(map(str, m)) + "\n"
+            for m in frame_oligos(enc.payloads, exp.framing, pad=exp.pad)))
+        lists_dir = str(tmp / "nccl_1")
+        rs = cli.main(["rs-recover", "--experiment", "7", "--lists-dir",
+                       lists_dir, "--data-size", str(len(data)),
+                       "--num-reads", str(len(posts)), "--num-trials", "1",
+                       "--infile", str(infile)])
+        if rs["successes"] != 1:
+            fail(f"phase 9e: rs-recover did not recover the file: {rs}")
+        err = cli.main(["error-rate", "--experiment", "7", "--lists-dir",
+                        lists_dir, "--oligos", str(oligos)])
+        if err["num_reads"] != len(posts):
+            fail(f"phase 9e: error-rate read {err['num_reads']} lists")
+        log(f"phase 9e: rs-recover {json.dumps(rs)}, error-rate "
+            f"{json.dumps(err)}")
+
+    line = {"gpu": gpu, "reads": len(posts), "local_batch": PARALLEL_BATCH,
+            "parent_reserved_gib": parent_gib, "free_gib": free_gib,
+            "sharded_world1": {
+                "B": len(fwd), "s": sharded_s, "k1_launches": a_launches,
+                "steps": a_steps, "crc_pass": res.crc_pass_total,
+                "nccl_group_s": nccl_s, "nccl_group_k1_launches":
+                nccl_launches, "nccl_group_steps": nccl_steps,
+                "classify_ms": classify_ms,
+                "classify_device_ops": classify_ops,
+                "classify_device_ms": classify_dev_ms,
+                "host_check_ms": host_ms},
+            **jobs,
+            "in_process_gated": {"s": inproc_s, "s_per_read":
+                                 inproc_s / len(posts),
+                                 "k1_launches": d_launches,
+                                 "steps": pdec.steps, "crc_pass": crc},
+            "rs_recover": rs, "error_rate": err}
+    return launches, line
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2034,6 +2333,10 @@ def main() -> int:
     basecall_launches, basecall_line = phase_basecall(enc, exp, gpu)
     log(f"phase 8: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    parallel_launches, parallel_line = phase_parallel(enc, exp, data, gpu)
+    log(f"phase 9: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs and lva_acs_lse times below: one block step at the main "
         f"path's B={B}")
@@ -2043,6 +2346,7 @@ def main() -> int:
     log(json.dumps({"probes": probes_line}))
     log(json.dumps({"lowering": lowering_rates}))
     log(json.dumps({"basecall": basecall_line}))
+    log(json.dumps({"parallel": parallel_line}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -2052,6 +2356,8 @@ def main() -> int:
         "launches": launches,
         # phase 8's decode of the basecaller's posteriors
         "basecall_launches": basecall_launches,
+        # phase 9's scale-out decode: in this process and in every rank
+        "parallel_launches": parallel_launches,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

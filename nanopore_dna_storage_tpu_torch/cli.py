@@ -1,14 +1,23 @@
 """Command line of the port:
 
   python -m nanopore_dna_storage_tpu_torch.cli sim-decode -i FILE ...
+  python -m nanopore_dna_storage_tpu_torch.cli error-rate --lists-dir D ...
+  python -m nanopore_dna_storage_tpu_torch.cli rs-recover --lists-dir D ...
+  python -m nanopore_dna_storage_tpu_torch.cli read-cost --lists-dir D ...
 
-Counterpart of ``nanopore_dna_storage_tpu/cli.py`` ``sim-decode``
-(``_add_exp_args``, ``_experiment``, ``cmd_sim_decode``): the same flags and
-the same JSON line, plus ``--device`` (default ``cuda``; no fallback to the
-CPU) and ``--batch``, the number of reads decoded together. The reference's
-other commands are not ported yet; its ``simulate-signal`` trains a
-basecaller first, and waits for the trainer. The basecaller chain itself is
-ported as a library (``pipeline/basecall.py`` ``Basecaller``,
+Counterpart of ``nanopore_dna_storage_tpu/cli.py`` ``sim-decode``,
+``error-rate``, ``rs-recover`` and ``read-cost`` (``_add_exp_args``,
+``_experiment``, ``cmd_sim_decode``, ``cmd_error_rate``,
+``cmd_rs_recover``, ``cmd_read_cost``): the same flags and the same JSON
+lines. ``sim-decode`` adds ``--device`` (default ``cuda``; no fallback to
+the CPU) and ``--batch``, the number of reads decoded together. The three
+list commands read the ``list_<i>`` files that
+``parallel/multihost.py``'s decode job writes (the reference's
+generate_decoded_lists.py output) on the host. The reference's other
+commands, ``encode``, ``simulate``, ``simulate-signal`` and
+``decode-posts``, are not ported yet; ``simulate-signal`` trains a
+basecaller first, and waits for the trainer. The basecaller chain itself
+is ported as a library (``pipeline/basecall.py`` ``Basecaller``,
 ``pipeline/simulate.py`` ``simulate_and_decode_signal``), as the reference
 has no basecall command either.
 """
@@ -16,8 +25,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
+import random
 import sys
+
+import numpy as np
 
 
 def _add_exp_args(p: argparse.ArgumentParser):
@@ -66,6 +79,164 @@ def cmd_sim_decode(args):
     return rec, stats
 
 
+def _first_passing(lst, exp, num_oligos: int):
+    """A read's chosen message: the first entry of its list file that passes
+    the CRC/index check (``check_and_extract``), as (index, message string,
+    payload bytes); None when no entry passes, or the list is empty (a read
+    with no valid path, on which the reference's check raises)."""
+    from .coding.framing import check_and_extract, extract_payload
+
+    if not lst:
+        return None
+    msgs = np.asarray([[int(c) for c in m] for m in lst], np.uint8)
+    ok, idx = check_and_extract(msgs, exp.framing, num_oligos, pad=exp.pad)
+    if not ok.any():
+        return None
+    first = int(np.argmax(ok))
+    return (int(idx[first]), lst[first],
+            extract_payload(msgs[first], exp.framing, exp.bytes_per_oligo,
+                            pad=exp.pad))
+
+
+def _num_oligos(exp, size: int) -> int:
+    """The oligo count of a ``size``-byte file, from its size padded to whole
+    oligos, as the reference computes it (decode_RS_from_decoded_lists.py:
+    20-22 via compute_parameters)."""
+    padded = math.ceil(size / exp.bytes_per_oligo) * exp.bytes_per_oligo
+    return exp.oligo_counts(padded)[2]
+
+
+def cmd_error_rate(args):
+    """Scan decoded list files (compute_error_rate_from_decoded_lists.py);
+    an empty list file counts as a CRC erasure. Prints one JSON line and
+    returns its record."""
+    from .io.lists import decoded_indices, read_list_file
+
+    exp = _experiment(args)
+    with open(args.oligos) as f:
+        oligo_msgs = [l.rstrip("\n") for l in f]
+    counts = dict(num_reads=0, num_correct=0, num_erasure_CRC=0,
+                  num_error_CRC=0)
+    num_oligos = len(oligo_msgs)
+    # index -> {msg: count}, the reference's decoded_index_dict
+    # (compute_error_rate_from_decoded_lists.py:22-51): per recovered index,
+    # vote over the per-read chosen messages.
+    index_dict: dict = {}
+    for i in decoded_indices(args.lists_dir):
+        lst = read_list_file(args.lists_dir, i, args.list_size)
+        counts["num_reads"] += 1
+        hit = _first_passing(lst, exp, num_oligos)
+        if hit is None:
+            counts["num_erasure_CRC"] += 1
+            continue
+        index, msg, _ = hit
+        votes = index_dict.setdefault(index, {})
+        votes[msg] = votes.get(msg, 0) + 1
+        if msg == oligo_msgs[index]:
+            counts["num_correct"] += 1
+        else:
+            counts["num_error_CRC"] += 1
+    # majority stats: per recovered index, does the top-voted message match?
+    maj_correct = sum(
+        1 for index, votes in index_dict.items()
+        if max(votes.items(), key=lambda kv: kv[1])[0] == oligo_msgs[index])
+    counts["num_indices_recovered"] = len(index_dict)
+    counts["num_indices_majority_correct"] = maj_correct
+    print(json.dumps(counts))
+    return counts
+
+
+def cmd_rs_recover(args):
+    """Subsampled RS recovery trials (decode_RS_from_decoded_lists.py).
+    Prints one JSON line and returns its record."""
+    from .io.lists import decoded_indices, read_list_file
+    from .pipeline.decode import majority_vote, recover_file
+
+    exp = _experiment(args)
+    size = args.data_size
+    num_oligos = _num_oligos(exp, size)
+    all_ids = decoded_indices(args.lists_dir)
+    rnd = random.Random(args.seed)
+    successes = 0
+    for trial in range(args.num_trials):
+        ids = rnd.sample(all_ids, min(args.num_reads, len(all_ids)))
+        idxs, pls = [], []
+        for i in ids:
+            hit = _first_passing(read_list_file(
+                args.lists_dir, i, args.list_size), exp, num_oligos)
+            if hit is not None:
+                idxs.append(hit[0])
+                pls.append(hit[2])
+        voted = majority_vote(np.asarray(idxs), np.asarray(pls))
+        ok, data = recover_file(voted, exp, size)
+        want = pathlib.Path(args.infile).read_bytes() if args.infile else None
+        if ok and (want is None or data == want):
+            successes += 1
+    rec = {"trials": args.num_trials, "successes": successes}
+    print(json.dumps(rec))
+    return rec
+
+
+def cmd_read_cost(args):
+    """Reading-cost sweep (supplementary Table 2 methodology): the minimum
+    number of reads, in steps of --step, for which --num-trials/--num-trials
+    random subsampling trials all recover the file via RS, reported as
+    bases/bit = min_reads * oligo_len / (8 * data_size)
+    (decode_RS_from_decoded_lists.py:29-68 over a read-count sweep). Prints
+    one JSON line and returns its record."""
+    from .io.lists import decoded_indices, read_list_file
+    from .pipeline.decode import majority_vote, recover_file
+
+    exp = _experiment(args)
+    size = args.data_size
+    num_oligos = _num_oligos(exp, size)
+    want = pathlib.Path(args.infile).read_bytes() if args.infile else None
+    all_ids = decoded_indices(args.lists_dir)
+
+    # pre-classify every read once (CRC+index per list); the sweep then just
+    # subsamples the classification results
+    classified = {}
+    for i in all_ids:
+        hit = _first_passing(read_list_file(args.lists_dir, i,
+                                            args.list_size), exp, num_oligos)
+        if hit is not None:
+            classified[i] = (hit[0], hit[2])
+
+    def trials_pass(n_reads: int) -> int:
+        rnd = random.Random(args.seed)
+        succ = 0
+        for _ in range(args.num_trials):
+            ids = rnd.sample(all_ids, min(n_reads, len(all_ids)))
+            hits = [classified[i] for i in ids if i in classified]
+            voted = majority_vote(
+                np.asarray([h[0] for h in hits], np.int64),
+                np.asarray([h[1] for h in hits], np.uint8).reshape(
+                    -1, exp.bytes_per_oligo))
+            ok, data = recover_file(voted, exp, size)
+            if ok and (want is None or data == want):
+                succ += 1
+        return succ
+
+    result = None
+    sweep = []
+    for n in range(args.step, len(all_ids) + args.step, args.step):
+        n_eff = min(n, len(all_ids))
+        succ = trials_pass(n_eff)
+        sweep.append({"num_reads": n_eff, "successes": succ})
+        if succ == args.num_trials:
+            result = n_eff
+            break
+        if n_eff == len(all_ids):
+            break
+    oligo_len = args.oligo_len
+    cost = (result * oligo_len / (8.0 * size)) if result and oligo_len \
+        else None
+    rec = {"min_reads": result, "sweep": sweep,
+           "reading_cost_bases_per_bit": round(cost, 3) if cost else None}
+    print(json.dumps(rec))
+    return rec
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="nanopore_dna_storage_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -86,6 +257,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device of the decode (cuda or cpu)")
     p.set_defaults(fn=cmd_sim_decode)
+
+    p = sub.add_parser("error-rate")
+    _add_exp_args(p)
+    p.add_argument("--lists-dir", required=True)
+    p.add_argument("--oligos", required=True,
+                   help="file of true message bit strings")
+    p.add_argument("--list-size", type=int, default=8)
+    p.set_defaults(fn=cmd_error_rate)
+
+    p = sub.add_parser("read-cost")
+    _add_exp_args(p)
+    p.add_argument("--lists-dir", required=True)
+    p.add_argument("--data-size", type=int, required=True)
+    p.add_argument("--infile", help="original file for byte comparison")
+    p.add_argument("--list-size", type=int, default=8)
+    p.add_argument("--step", type=int, default=500,
+                   help="read-count sweep step (supplementary Table 2)")
+    p.add_argument("--num-trials", type=int, default=10)
+    p.add_argument("--oligo-len", type=int, default=0,
+                   help="oligo length incl. any padding, for bases/bit")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_read_cost)
+
+    p = sub.add_parser("rs-recover")
+    _add_exp_args(p)
+    p.add_argument("--lists-dir", required=True)
+    p.add_argument("--data-size", type=int, required=True)
+    p.add_argument("--infile", help="original file for byte comparison")
+    p.add_argument("--num-reads", type=int, default=5000)
+    p.add_argument("--num-trials", type=int, default=10)
+    p.add_argument("--list-size", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_rs_recover)
     return ap
 
 

@@ -4,7 +4,9 @@ viterbi_convolutional_code.cpp:589-858).
 
 Counterpart of ``nanopore_dna_storage_tpu/ops/lva.py`` ``LVADecoder``
 (``schedule``, ``decode``) and ``_unpack_msgs``, with the same
-``decode(posts, nblks) -> (msgs, scores, valid)`` contract. The decode
+``decode(posts, nblks) -> (msgs, scores, valid)`` contract;
+``decode_device`` leaves its result on the device, as the Pallas
+decoder's ``decode_device`` does for the sharded decode. The decode
 runs on ``device``, the card unless the caller passes ``device="cpu"``:
 the ACS step is the CUDA kernel on a CUDA device and its plain PyTorch
 version on the CPU, ``acs_block`` under max combining and
@@ -64,9 +66,12 @@ class LVADecoder:
             out[b, int(n):] = s[-1] if len(s) else 0
         return out
 
-    def decode(self, posts: np.ndarray, nblks: Optional[np.ndarray] = None,
-               acs: Optional[Callable] = None):
-        """Decode a batch.
+    def decode_device(self, posts: np.ndarray,
+                      nblks: Optional[np.ndarray] = None,
+                      acs: Optional[Callable] = None):
+        """Decode a batch and leave the result on the decoder's device
+        (``PallasDecoder.decode_device``): the forward block loop, the
+        traceback and the ordering.
 
         Args:
           posts: [B, T, 5, 8] float32, zero-padded beyond each read's nblk.
@@ -77,7 +82,9 @@ class LVADecoder:
             ``acs_block_lse_ref``) passes one. The K-way ``acs_block`` is
             refused under logsumexp combining: its buffers are unsorted.
         Returns:
-          (msgs uint8 [B, L, msg_len], scores f32 [B, L], valid bool [B, L])
+          (scores f32 [B, L], words int64 [B, L, Mw] holding uint32 values,
+          okend bool [B, L]), best score first; an entry is valid where its
+          score is above -inf and ``okend`` holds.
         """
         if acs is None:
             acs = acs_block_lse if self.spec.combine_lse else acs_block
@@ -115,8 +122,17 @@ class LVADecoder:
             spec, self.consts, self.tabs, sels, starts_d.long(), nblks_d,
             torch.from_numpy(tlo).to(dev), torch.from_numpy(thi).to(dev))
         del sels
-        sc, words, okend = lva_decode.order(fin_sc, words, okend,
-                                            spec.list_size)
+        return lva_decode.order(fin_sc, words, okend, spec.list_size)
+
+    def decode(self, posts: np.ndarray, nblks: Optional[np.ndarray] = None,
+               acs: Optional[Callable] = None):
+        """Decode a batch on the host's side: ``decode_device``, its result
+        copied to the host and unpacked. Arguments as ``decode_device``.
+
+        Returns:
+          (msgs uint8 [B, L, msg_len], scores f32 [B, L], valid bool [B, L])
+        """
+        sc, words, okend = self.decode_device(posts, nblks, acs)
         sc = sc.cpu().numpy()
         valid = (sc > -np.inf) & okend.cpu().numpy()
-        return unpack_msgs(spec, words.cpu().numpy()), sc, valid
+        return unpack_msgs(self.spec, words.cpu().numpy()), sc, valid

@@ -2,10 +2,11 @@
 RS -> file bytes.
 
 Counterpart of ``nanopore_dna_storage_tpu/pipeline/decode.py``
-(``ListDecodeOutcome``, ``PipelineDecoder.decode_posts`` and ``classify``,
-``majority_vote``, ``recover_file``, ``ErrorRateCounters``). The numpy
-stages are the reference's own, re-hosted here because the reference module
-imports its JAX decoder; the list decode runs on the port's ``LVADecoder``.
+(``ListDecodeOutcome``, ``PipelineDecoder.decode_posts``,
+``decode_posts_auto_orientation`` and ``classify``, ``majority_vote``,
+``recover_file``, ``ErrorRateCounters``). The numpy stages are the
+reference's own, re-hosted here because the reference module imports its
+JAX decoder; the list decode runs on the port's ``LVADecoder``.
 """
 from __future__ import annotations
 
@@ -84,6 +85,64 @@ class PipelineDecoder:
         out = self.classify(msgs, valid, num_oligos)
         out.best_score = best
         return out
+
+    def decode_posts_auto_orientation(
+            self, posts: Sequence[np.ndarray], num_oligos: int,
+            gated: bool = True
+    ) -> Tuple[ListDecodeOutcome, np.ndarray]:
+        """Per-read orientation pick for posts that arrive WITHOUT a
+        basecall (the reference's decode script always has one and picks
+        orientation by barcode edit distance before the expensive decode,
+        generate_decoded_lists.py:68-74 — `decode_posts` with known
+        rc_flags is that 1x-cost path).
+
+        ``gated`` (default): decode forward first and re-decode ONLY the
+        reads with no CRC-passing candidate — the CRC check is the
+        pipeline's own orientation oracle, so a fwd CRC pass settles the
+        read at 1x cost; cost is (1 + fail_fraction)x instead of the 2x of
+        decoding every read both ways. ``gated=False`` decodes everything
+        both ways and keeps the higher top path score (lists are
+        score-sorted, cpp:817-824). Returns (outcome, rc_used [B] bool).
+        """
+        n = len(posts)
+        out_f = self.decode_posts(posts, [False] * n, num_oligos)
+        if not gated:
+            out_r = self.decode_posts(posts, [True] * n, num_oligos)
+            use_rc = out_r.best_score > out_f.best_score  # tie -> fwd
+            pick = lambda a, b: np.where(  # noqa: E731
+                use_rc.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+            merged = ListDecodeOutcome(
+                msgs=pick(out_r.msgs, out_f.msgs),
+                valid=pick(out_r.valid, out_f.valid),
+                index=pick(out_r.index, out_f.index),
+                payload=pick(out_r.payload, out_f.payload),
+                chosen_msg=pick(out_r.chosen_msg, out_f.chosen_msg),
+                best_score=pick(out_r.best_score, out_f.best_score))
+            return merged, use_rc
+        need = np.nonzero(out_f.index < 0)[0]
+        rc_used = np.zeros(n, bool)
+        if len(need) == 0:
+            return out_f, rc_used
+        out_r = self.decode_posts([posts[i] for i in need],
+                                  [True] * len(need), num_oligos)
+        # RC wins where it CRC-passes (fwd did not), or where neither
+        # passes and RC's top path score is higher (tie -> fwd)
+        take = (out_r.index >= 0) | (out_r.best_score >
+                                     out_f.best_score[need])
+        rows = need[take]
+        rc_used[rows] = True
+        merged = ListDecodeOutcome(
+            msgs=out_f.msgs.copy(), valid=out_f.valid.copy(),
+            index=out_f.index.copy(), payload=out_f.payload.copy(),
+            chosen_msg=out_f.chosen_msg.copy(),
+            best_score=out_f.best_score.copy())
+        merged.msgs[rows] = out_r.msgs[take]
+        merged.valid[rows] = out_r.valid[take]
+        merged.index[rows] = out_r.index[take]
+        merged.payload[rows] = out_r.payload[take]
+        merged.chosen_msg[rows] = out_r.chosen_msg[take]
+        merged.best_score[rows] = out_r.best_score[take]
+        return merged, rc_used
 
     def classify(self, msgs: np.ndarray, valid: np.ndarray,
                  num_oligos: int) -> ListDecodeOutcome:
