@@ -108,7 +108,29 @@ Phases, each fatal on failure:
    ``PipelineDecoder.decode_posts_auto_orientation(gated=True)`` in
    process, the ``info_*`` shards naming every read once, the CRC counts
    equal; ``cli rs-recover`` on the lists recovering the file byte for
-   byte, and ``cli error-rate`` on them.
+   byte, and ``cli error-rate`` on them;
+10. the real-read path at the headline config (``signal/barcode.py``,
+   ``pipeline/real_data.py``, ``cli decode-posts``): 64 barcoded reads of
+   phase 3's file, every second one reverse complement, with phase 3's
+   channel errors, through ``synthetic_post``; their basecalls and
+   ``.trans`` block indices from ``viterbi_flipflop_batch`` on the card,
+   written as ``.post``, ``.fastq`` and ``.trans`` files; ``cli
+   decode-posts --with-barcodes`` (its ``main`` in this process, so that
+   its launches count) accounting for every read in ``info.txt`` with one
+   K1 launch per block step, its lists equal to
+   ``PipelineDecoder.decode_posts`` in process on the windows that
+   ``locate_payload`` gives, ``cli rs-recover`` on them recovering the
+   file byte for byte, the barcode search and the decode timed apart; the
+   windows as truncated ``.post`` files through ``python -m
+   nanopore_dna_storage_tpu_torch.cli decode-posts``, its lists and
+   orientations equal to ``decode_posts_auto_orientation`` in process; 8
+   barcoded raw-signal reads through ``Basecaller.basecall(keep_posterior=
+   True)`` on seeded random weights and ``decode_posts_with_barcodes``,
+   every read accounted for, one K1 launch per block step; the three
+   vocabulary goldens through ``decode_post_vocab`` on the card equal to
+   the reference's ``.out``, and a larger case (16 ten-mers, msg_len 20)
+   equal to the CPU's, timed; the native host library (``native/``) built
+   or not, and its three functions equal to numpy.
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
@@ -127,9 +149,13 @@ device time, idle share and peak memory, the decode's),
 ``{"parallel": {...}}`` (phase 9: each leg's wall seconds and s/read,
 each rank's K1 launches against its block steps, process start, group
 start and job seconds and peak memory, the classification's times and
-device operations), the card's name and power limit, and
-``{"kernels": [...]}`` (K1's entry adds phase 9's launches as
-``parallel_launches``); the last is
+device operations), ``{"real_data": {...}}`` (phase 10: the ok share,
+the basecall's, the barcode search's, the decode's and each command's
+seconds, K1 launches against block steps, the raw-signal leg, the vocab
+times, whether the native library was built), the card's name and power
+limit, and ``{"kernels": [...]}`` (K1's entry adds phase 9's launches as
+``parallel_launches`` and phase 10's as ``real_data_launches``); the last
+is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
 """
@@ -138,6 +164,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -155,16 +182,23 @@ try:
         check_and_extract, frame_oligos)
     from nanopore_dna_storage_tpu_torch.config import (ConvCodeConfig,
                                                        DecodeConfig)
-    from nanopore_dna_storage_tpu_torch.io.post import pack_posts, write_post
+    from nanopore_dna_storage_tpu_torch.io.post import (pack_posts, read_post,
+                                                        write_post)
     from nanopore_dna_storage_tpu_torch.models.flipflop import (
         FlipflopConfig, FlipflopNet, init_params)
-    from nanopore_dna_storage_tpu_torch.ops.crf_decode import \
-        viterbi_flipflop_batch
+    from nanopore_dna_storage_tpu_torch import native
+    from nanopore_dna_storage_tpu_torch.coding.conv import (make_conv_code,
+                                                            str_to_bases)
+    from nanopore_dna_storage_tpu_torch.coding.crc import crc8_batch
+    from nanopore_dna_storage_tpu_torch.ops.crf_decode import (
+        basecall_from_path, viterbi_flipflop_batch)
     from nanopore_dna_storage_tpu_torch.ops.fwdbwd import \
         batched_transition_posteriors
     from nanopore_dna_storage_tpu_torch.ops import _build, lva_acs, lva_decode
     from nanopore_dna_storage_tpu_torch.ops.lva import LVADecoder
     from nanopore_dna_storage_tpu_torch.ops.lva_consts import sel_format
+    from nanopore_dna_storage_tpu_torch.ops.synthetic import synthetic_post
+    from nanopore_dna_storage_tpu_torch.ops.vocab import decode_post_vocab
     from nanopore_dna_storage_tpu_torch.parallel import launch, multihost
     from nanopore_dna_storage_tpu_torch.parallel.mesh import ShardedDecoder
     from nanopore_dna_storage_tpu_torch.pipeline import (encode_bytes,
@@ -173,12 +207,18 @@ try:
         PipelineDecoder, majority_vote, recover_file)
     from nanopore_dna_storage_tpu_torch.pipeline.basecall import (
         Basecaller, write_fastq)
+    from nanopore_dna_storage_tpu_torch.pipeline.real_data import (
+        decode_posts_with_barcodes, locate_payload)
     from nanopore_dna_storage_tpu_torch.pipeline.simulate import (
         signal_batch, simulate_posts, simulate_posts_signal,
         simulate_raw_reads)
     from nanopore_dna_storage_tpu_torch.probes import (expand, lowering,
                                                        merge_roofline,
                                                        mxu_expand, treepop)
+    from nanopore_dna_storage_tpu_torch.signal.barcode import \
+        levenshtein_windows
+    from nanopore_dna_storage_tpu_torch.signal.channel import \
+        simulate_indelsubs
 except ImportError as e:
     sys.exit(f"chip_smoke: FAIL: the port package is not beside this "
              f"script: {e}")
@@ -209,6 +249,14 @@ CHAIN_TOL = 1e-4
 # PARALLEL_BATCH a step (each read's selections take ~2.1 GB on the card)
 PARALLEL_READS = 32
 PARALLEL_BATCH = 8
+# phase 10: barcoded reads of experiment 7 (half of them reverse
+# complement) through decode-posts, REAL_BATCH reads a decode (each read's
+# selections take ~2.1 GB on the card); 8 raw-signal reads through the
+# basecaller; the larger vocabulary case: 16 ten-mers, a message of 20
+REAL_READS = 64
+REAL_BATCH = 16
+RAW_READS = 8
+VOCAB_WORDS, VOCAB_WORD_LEN, VOCAB_MSG_LEN = 16, 10, 20
 # every kernel library and its sources in csrc/
 LIBS = {"lva_acs": ["lva_acs.cu"], "lva_lse": ["lva_lse.cu"],
         "probes": ["probes.cu"], "expand": ["expand.cu"],
@@ -515,7 +563,7 @@ def phase_batch(enc, exp, device, path_combine="max", every=1,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = PipelineDecoder(exp, 8, 20, path_combine=path_combine,
-                          device=device).decode_posts(
+                          device="cuda").decode_posts(
         posts, rcs, enc.num_oligos_data + enc.num_oligos_rs, acs=check)
     log(f"{tag}: {check.checked} of {check.blocks} blocks bit-equal"
         f"{'' if check.lse else ', rows sorted'}, {check.mixed} of them "
@@ -621,7 +669,7 @@ def phase_goldens(device):
             post = np.fromfile(root / f"{case['name']}.post",
                                dtype="<f4").reshape(-1, 5, 8)
             t0 = time.perf_counter()
-            msgs, _, valid = LVADecoder(cfg, device=device).decode(
+            msgs, _, valid = LVADecoder(cfg, device="cuda").decode(
                 post[None])
             got = ["".join(map(str, m))
                    for m, v in zip(msgs[0], valid[0]) if v]
@@ -2248,6 +2296,351 @@ def phase_parallel(enc, exp, data: bytes, gpu: str):
     return launches, line
 
 
+def list_text(msgs, valid) -> str:
+    """A list file's text: one decoded bit string a line, valid entries."""
+    return "".join("".join(map(str, m)) + "\n" for m, v in zip(msgs, valid)
+                   if v)
+
+
+def barcoded_reads(enc, n: int, rng):
+    """Phase 10a's reads: ``n`` random oligos with their barcodes, every
+    second one reverse complement, through phase 3's channel errors and
+    ``synthetic_post``. Returns (posts, rc flags)."""
+    arr = str_to_bases(enc.oligos_barcoded)
+    posts, rcs = [], []
+    for i in range(n):
+        oid = int(rng.integers(len(arr)))
+        rc = i % 2 == 1
+        noisy = simulate_indelsubs(arr[oid], rng, 0.004, 0.0085, 0.0005)
+        posts.append(synthetic_post(noisy, rng, rc=rc))
+        rcs.append(rc)
+    return posts, np.asarray(rcs)
+
+
+def run_cli_module(argv) -> dict:
+    """``python -m nanopore_dna_storage_tpu_torch.cli`` with ``argv`` in a
+    process of its own; fails unless it exits 0 with one JSON line last.
+    The caller's cached device memory is handed back first."""
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    res = subprocess.run(
+        [sys.executable, "-m", "nanopore_dna_storage_tpu_torch.cli", *argv],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        fail(f"cli {' '.join(argv[:1])} exited {res.returncode}:\n"
+             f"{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def phase_real_data(enc, exp, data: bytes, gpu: str, exp_args):
+    """Phase 10: the real-read path at the headline config. (a)
+    ``REAL_READS`` barcoded reads (``barcoded_reads``); each read's
+    basecall and ``.trans`` block indices from ``viterbi_flipflop_batch``
+    on the card; ``.post``, ``.fastq`` and ``.trans`` files;
+    ``cli decode-posts --with-barcodes`` (its ``main`` in this process, so
+    that its K1 launches count) must account for every read in
+    ``info.txt``, launch K1 once per block step and write the lists of an
+    in-process ``PipelineDecoder.decode_posts`` on the windows that
+    ``locate_payload`` gives, in the same batches; ``cli rs-recover`` on
+    them must recover the file byte for byte; the barcode search and the
+    decode are timed apart. (b) the same windows as truncated ``.post``
+    files through ``python -m ...cli decode-posts`` without barcodes,
+    whose lists and orientations must equal
+    ``decode_posts_auto_orientation`` in process. (c) ``RAW_READS``
+    barcoded raw-signal reads (``simulate_raw_reads``) through
+    ``Basecaller.basecall(keep_posterior=True)`` on seeded random weights,
+    then ``decode_posts_with_barcodes``: every read accounted for, one K1
+    launch per block step. (d) the vocabulary goldens through
+    ``decode_post_vocab`` on the card equal the reference's ``.out``, and
+    a larger seeded case equal to the CPU's, timed. (e) the native host
+    library: whether it was built, its three functions equal to numpy.
+    ``exp_args`` are the CLI flags that give ``exp``. The K1 counts are set
+    to 0 before each decode. Returns the K1 launches and the
+    ``real_data`` line."""
+    num_oligos = 1 << exp.framing.index_len
+    min_blocks = make_conv_code(ConvCodeConfig(
+        mem=exp.conv_mem, rate=exp.conv_rate,
+        msg_len=exp.msg_len())).nstate_pos + 1
+    dec_args = [*exp_args, "--list-size", "8", "--max-deviation", "20",
+                "--batch", str(REAL_BATCH), "--device", "cuda"]
+    launches = 0
+    line = {"gpu": gpu, "reads": REAL_READS, "batch": REAL_BATCH}
+
+    # (a) the reads, their basecalls on the card and the barcode search
+    posts, rcs = barcoded_reads(enc, REAL_READS,
+                                np.random.default_rng(SEED + 10))
+    batch, nblk = pack_posts(posts, bucket=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths, _ = viterbi_flipflop_batch(torch.from_numpy(batch).cuda(),
+                                      torch.from_numpy(nblk).cuda())
+    paths = paths.cpu().numpy()
+    calls, transes = zip(*(basecall_from_path(p, int(n))
+                           for p, n in zip(paths, nblk)))
+    line["basecall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    located = [locate_payload(c, t, exp) for c, t in zip(calls, transes)]
+    line["barcode_search_s"] = time.perf_counter() - t0
+    status = ["barcode_failure" if s < 0 else
+              "too_short" if e - s + 1 < min_blocks else "ok"
+              for _, s, e, _ in located]
+    ok = [i for i, st in enumerate(status) if st == "ok"]
+    wrong_rc = int(sum(located[i][0] != rcs[i] for i in ok))
+    line.update(ok=len(ok), ok_share=len(ok) / REAL_READS,
+                barcode_failure=status.count("barcode_failure"),
+                too_short=status.count("too_short"), wrong_orientation=wrong_rc,
+                blocks=[int(nblk.min()), int(nblk.max())])
+    log(f"phase 10a: {REAL_READS} barcoded reads ({int(rcs.sum())} reverse "
+        f"complement), {nblk.min()}-{nblk.max()} blocks; basecalls on the "
+        f"card {line['basecall_s']:.3f} s; barcode search "
+        f"{line['barcode_search_s']:.3f} s "
+        f"({line['barcode_search_s'] / REAL_READS * 1e3:.2f} ms a read): "
+        f"{len(ok)} ok ({line['ok_share']:.3f}), {line['barcode_failure']} "
+        f"barcode failures, {line['too_short']} too short, {wrong_rc} ok "
+        f"reads in the wrong orientation")
+
+    # the in-process reference: decode_posts on the windows, in the batches
+    # that decode_posts_with_barcodes forms (every REAL_BATCH ok reads)
+    windows = {i: posts[i][located[i][1]:located[i][2] + 1] for i in ok}
+    pdec = PipelineDecoder(exp, 8, 20, device="cuda")
+    torch.cuda.synchronize()
+    lva_acs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    want, crc = {}, 0
+    for lo in range(0, len(ok), REAL_BATCH):
+        idx = ok[lo:lo + REAL_BATCH]
+        out = pdec.decode_posts([windows[i] for i in idx],
+                                [located[i][0] for i in idx], num_oligos)
+        crc += int((out.index >= 0).sum())
+        for j, i in enumerate(idx):
+            want[f"list_{i}"] = list_text(out.msgs[j], out.valid[j])
+    torch.cuda.synchronize()
+    line["decode_s"] = time.perf_counter() - t0
+    ref_launches = lva_acs.LAUNCHES
+    if ref_launches != pdec.steps:
+        fail(f"phase 10a: {ref_launches} K1 launches for {pdec.steps} block "
+             f"steps in the in-process decode")
+    launches += ref_launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        whole, cut = tmp / "whole", tmp / "windows"
+        whole.mkdir()
+        cut.mkdir()
+        for i, (p, c, t) in enumerate(zip(posts, calls, transes)):
+            write_post(str(whole / f"read_{i:03d}.post"), p)
+            (whole / f"read_{i:03d}.fastq").write_text(
+                f"@read_{i:03d}\n{c}\n+\n{'5' * len(c)}\n")
+            np.savetxt(whole / f"read_{i:03d}.trans", t, fmt="%d")
+            if i in windows:
+                write_post(str(cut / f"read_{i:03d}.post"), windows[i])
+        torch.cuda.synchronize()
+        lva_acs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rec, steps = cli.main(["decode-posts", "--with-barcodes",
+                               "--post-dir", str(whole), "--outdir",
+                               str(tmp / "out_a"), *dec_args])
+        torch.cuda.synchronize()
+        line["cli_s"] = time.perf_counter() - t0
+        cli_launches = lva_acs.LAUNCHES
+        if cli_launches == 0 or cli_launches != steps or \
+                steps != pdec.steps:
+            fail(f"phase 10a: decode-posts made {cli_launches} K1 launches "
+                 f"for {steps} block steps (in process: {pdec.steps})")
+        launches += cli_launches
+        info = (tmp / "out_a" / "info.txt").read_text().splitlines()
+        got_status = [ln.split("\t")[1] for ln in info]
+        if len(info) != REAL_READS or [ln.split("\t")[0] for ln in info] != \
+                [f"read_{i:03d}" for i in range(REAL_READS)] or \
+                got_status != status or rec["decoded"] != len(ok):
+            fail(f"phase 10a: info.txt does not account for every read as "
+                 f"the barcode search does: {rec}")
+        if list_files(tmp / "out_a") != want:
+            fail("phase 10a: decode-posts --with-barcodes wrote other lists "
+                 "than decode_posts on the located windows")
+        infile = tmp / "data.bin"
+        infile.write_bytes(data)
+        rs = cli.main(["rs-recover", *exp_args, "--lists-dir",
+                       str(tmp / "out_a"), "--data-size", str(len(data)),
+                       "--num-reads", str(REAL_READS), "--num-trials", "1",
+                       "--infile", str(infile)])
+        if rs["successes"] != 1:
+            fail(f"phase 10a: rs-recover did not recover the file: {rs}")
+        line.update(k1_launches_a=cli_launches, steps_a=steps, crc_pass=crc,
+                    rs_recover=rs)
+        log(f"phase 10a: decode-posts --with-barcodes {line['cli_s']:.3f} s "
+            f"({line['cli_s'] / REAL_READS:.4f} s/read), {cli_launches} K1 "
+            f"launches for {steps} block steps; in process decode_posts on "
+            f"the windows {line['decode_s']:.3f} s "
+            f"({line['decode_s'] / max(len(ok), 1):.4f} s a decoded read), "
+            f"the same lists; {crc} of {len(ok)} pass CRC; rs-recover "
+            f"{json.dumps(rs)}")
+
+        # (b) the windows alone, through python -m ...cli
+        t0 = time.perf_counter()
+        rec_b = run_cli_module(["decode-posts", "--post-dir", str(cut),
+                                "--outdir", str(tmp / "out_b"), *dec_args])
+        line["cli_b_s"] = time.perf_counter() - t0
+        files = sorted(cut.glob("*.post"))
+        torch.cuda.synchronize()
+        lva_acs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        want_b, rc_b = {}, []
+        adec = PipelineDecoder(exp, 8, 20, device="cuda")
+        for lo in range(0, len(files), REAL_BATCH):
+            out, use_rc = adec.decode_posts_auto_orientation(
+                [read_post(str(f)) for f in files[lo:lo + REAL_BATCH]],
+                num_oligos)
+            for j in range(len(use_rc)):
+                want_b[f"list_{lo + j}"] = list_text(out.msgs[j],
+                                                     out.valid[j])
+            rc_b += [f"rc={int(r)}" for r in use_rc]
+        torch.cuda.synchronize()
+        line["auto_orientation_s"] = time.perf_counter() - t0
+        b_launches = lva_acs.LAUNCHES
+        if b_launches != adec.steps:
+            fail(f"phase 10b: {b_launches} K1 launches for {adec.steps} "
+                 f"block steps")
+        launches += b_launches
+        info_b = (tmp / "out_b" / "info.txt").read_text().splitlines()
+        if rec_b != {"reads": len(files), "decoded": len(files)} or \
+                list_files(tmp / "out_b") != want_b or \
+                [ln.split("\t")[2] for ln in info_b] != rc_b:
+            fail("phase 10b: decode-posts without barcodes differs from "
+                 "decode_posts_auto_orientation in process")
+        agree = int(sum(r == f"rc={int(located[i][0])}"
+                        for r, i in zip(rc_b, ok)))
+    line.update(k1_launches_b=b_launches, steps_b=adec.steps,
+                orientation_agrees_with_barcodes=agree)
+    log(f"phase 10b: python -m ...cli decode-posts on the {len(files)} "
+        f"windows {line['cli_b_s']:.3f} s with the process start; in process "
+        f"decode_posts_auto_orientation {line['auto_orientation_s']:.3f} s, "
+        f"{b_launches} K1 launches for {adec.steps} block steps, the same "
+        f"lists and orientations; the gated pick agrees with the barcodes' "
+        f"orientation on {agree} of {len(files)}")
+
+    # (c) raw signal -> basecaller on random weights -> the barcode path
+    raws, _, _ = simulate_raw_reads(enc.oligos_barcoded, RAW_READS,
+                                    np.random.default_rng(SEED + 11))
+    ids = [f"raw_{i}" for i in range(RAW_READS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bcs = Basecaller(seed=SEED, device="cuda").basecall(
+        ids, raws, keep_posterior=True)
+    torch.cuda.synchronize()
+    raw_basecall_s = time.perf_counter() - t0
+    rdec = PipelineDecoder(exp, 8, 20, device="cuda")
+    lva_acs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    recs = decode_posts_with_barcodes(
+        ids, [b.posterior for b in bcs], [b.sequence for b in bcs],
+        [b.block_index for b in bcs], exp, 8, 20, decoder=rdec,
+        batch=RAW_READS)
+    torch.cuda.synchronize()
+    raw_decode_s = time.perf_counter() - t0
+    c_launches = lva_acs.LAUNCHES
+    if [r.read_id for r in recs] != ids or c_launches != rdec.steps:
+        fail(f"phase 10c: {len(recs)} records for {RAW_READS} reads, "
+             f"{c_launches} K1 launches for {rdec.steps} block steps")
+    launches += c_launches
+    raw_status = {st: sum(r.status == st for r in recs)
+                  for st in ("ok", "barcode_failure", "too_short")}
+    line["raw_signal"] = {
+        "reads": RAW_READS, "basecall_s": raw_basecall_s,
+        "decode_s": raw_decode_s, "status": raw_status,
+        "bases": sum(len(b.sequence) for b in bcs),
+        "k1_launches": c_launches, "steps": rdec.steps}
+    log(f"phase 10c: {RAW_READS} raw-signal reads: Basecaller "
+        f"{raw_basecall_s:.3f} s (random weights), decode_posts_with_barcodes"
+        f" {raw_decode_s:.3f} s, {json.dumps(raw_status)}, {c_launches} K1 "
+        f"launches for {rdec.steps} block steps")
+
+    # (d) the vocabulary Viterbi on the card
+    vocab = {}
+    root = GOLDEN / "vocab"
+    for case in json.loads((root / "manifest.json").read_text()):
+        post = np.fromfile(root / f"{case['name']}.post",
+                           dtype="<f4").reshape(-1, 5, 8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = decode_post_vocab(post, case["msg_len"], case["vocab"],
+                                device="cuda").tolist()
+        sec = time.perf_counter() - t0
+        if got != [int(x) for x in (root / f"{case['name']}.out")
+                   .read_text().split()]:
+            fail(f"phase 10d: vocab golden {case['name']} differs from the "
+                 f"reference's .out")
+        vocab[case["name"]] = {"blocks": len(post), "s": sec}
+    rng = np.random.default_rng(SEED + 12)
+    words = ["".join("ACGT"[j] for j in rng.integers(0, 4, VOCAB_WORD_LEN))
+             for _ in range(VOCAB_WORDS)]
+    msg = rng.integers(0, VOCAB_WORDS, VOCAB_MSG_LEN)
+    post = synthetic_post(np.asarray(["ACGT".index(c) for c in "".join(
+        words[m] for m in msg)]), rng)
+    t0 = time.perf_counter()
+    got = decode_post_vocab(post, VOCAB_MSG_LEN, words, device="cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_v = decode_post_vocab(post, VOCAB_MSG_LEN, words, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(got, want_v):
+        fail("phase 10d: the larger vocab case differs between the card and "
+             "the CPU")
+    vocab["larger"] = {"words": VOCAB_WORDS, "msg_len": VOCAB_MSG_LEN,
+                       "blocks": len(post), "s": card_s, "cpu_s": cpu_s,
+                       "ms_a_block": card_s / len(post) * 1e3,
+                       "message_recovered": bool(np.array_equal(got, msg))}
+    line["vocab"] = vocab
+    log(f"phase 10d: vocab goldens equal the reference's .out; the larger "
+        f"case ({VOCAB_WORDS} words of {VOCAB_WORD_LEN}, msg_len "
+        f"{VOCAB_MSG_LEN}, {len(post)} blocks) {card_s:.3f} s on the card "
+        f"({vocab['larger']['ms_a_block']:.3f} ms a block), {cpu_s:.3f} s on "
+        f"the CPU, equal; {json.dumps(vocab)}")
+
+    # (e) the native host library against numpy
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+    rows = np.random.default_rng(SEED).integers(0, 256, (4096, 23),
+                                                dtype=np.uint8)
+    needle = exp.start_barcode
+    scans = [(c, np.arange(max(len(c) // 2 + 1 - len(needle), 0)))
+             for c in calls]
+    t0 = time.perf_counter()
+    lev = [native.levenshtein_windows_native(needle, c, st, len(needle))
+           for c, st in scans]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lev_np = [levenshtein_windows(needle, c, st, len(needle))
+              for c, st in scans]
+    numpy_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        names = []
+        for i, p in enumerate(posts[:16]):
+            names.append(str(pathlib.Path(tmp) / f"{i}.post"))
+            write_post(names[-1], p)
+        loaded = native.load_posts_batch(names, int(nblk.max()))
+        packed = pack_posts([read_post(n) for n in names],
+                            pad_to=int(nblk.max()), bucket=1)
+    if not (np.array_equal(native.crc8_batch_native(rows), crc8_batch(rows))
+            and all(np.array_equal(a, b) for a, b in zip(lev, lev_np))
+            and all(np.array_equal(a, b) for a, b in zip(loaded, packed))):
+        fail("phase 10e: the native library differs from numpy")
+    line["native"] = {"built": built, "build_s": build_s,
+                      "start_scan_native_s": native_s,
+                      "start_scan_numpy_s": numpy_s}
+    ran = "built" if built else "NOT built: the numpy fallback ran"
+    log(f"phase 10e: native library {ran} ({build_s:.2f} s); CRC8, the "
+        f"barcode scan and the .post loader equal to numpy; the "
+        f"start-barcode scan of the "
+        f"{REAL_READS} basecalls {native_s:.4f} s native, {numpy_s:.4f} s "
+        f"numpy")
+    line["k1_launches"] = launches
+    return launches, line
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2337,6 +2730,11 @@ def main() -> int:
     parallel_launches, parallel_line = phase_parallel(enc, exp, data, gpu)
     log(f"phase 9: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    real_launches, real_line = phase_real_data(
+        enc, exp, data, gpu, ["--experiment", "7"])
+    log(f"phase 10: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs and lva_acs_lse times below: one block step at the main "
         f"path's B={B}")
@@ -2347,6 +2745,7 @@ def main() -> int:
     log(json.dumps({"lowering": lowering_rates}))
     log(json.dumps({"basecall": basecall_line}))
     log(json.dumps({"parallel": parallel_line}))
+    log(json.dumps({"real_data": real_line}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -2358,6 +2757,9 @@ def main() -> int:
         "basecall_launches": basecall_launches,
         # phase 9's scale-out decode: in this process and in every rank
         "parallel_launches": parallel_launches,
+        # phase 10's real-read path: decode-posts with and without
+        # barcodes, their in-process references and the raw-signal leg
+        "real_data_launches": real_launches,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -1,25 +1,30 @@
 """Command line of the port:
 
+  python -m nanopore_dna_storage_tpu_torch.cli encode -i FILE -o OLIGOS ...
+  python -m nanopore_dna_storage_tpu_torch.cli simulate ...
   python -m nanopore_dna_storage_tpu_torch.cli sim-decode -i FILE ...
+  python -m nanopore_dna_storage_tpu_torch.cli decode-posts --post-dir D ...
   python -m nanopore_dna_storage_tpu_torch.cli error-rate --lists-dir D ...
   python -m nanopore_dna_storage_tpu_torch.cli rs-recover --lists-dir D ...
   python -m nanopore_dna_storage_tpu_torch.cli read-cost --lists-dir D ...
 
-Counterpart of ``nanopore_dna_storage_tpu/cli.py`` ``sim-decode``,
-``error-rate``, ``rs-recover`` and ``read-cost`` (``_add_exp_args``,
-``_experiment``, ``cmd_sim_decode``, ``cmd_error_rate``,
-``cmd_rs_recover``, ``cmd_read_cost``): the same flags and the same JSON
-lines. ``sim-decode`` adds ``--device`` (default ``cuda``; no fallback to
-the CPU) and ``--batch``, the number of reads decoded together. The three
-list commands read the ``list_<i>`` files that
-``parallel/multihost.py``'s decode job writes (the reference's
-generate_decoded_lists.py output) on the host. The reference's other
-commands, ``encode``, ``simulate``, ``simulate-signal`` and
-``decode-posts``, are not ported yet; ``simulate-signal`` trains a
-basecaller first, and waits for the trainer. The basecaller chain itself
-is ported as a library (``pipeline/basecall.py`` ``Basecaller``,
-``pipeline/simulate.py`` ``simulate_and_decode_signal``), as the reference
-has no basecall command either.
+Counterpart of ``nanopore_dna_storage_tpu/cli.py``'s commands of the same
+names (``_add_exp_args``, ``_experiment``, ``cmd_encode``,
+``cmd_simulate``, ``cmd_sim_decode``, ``cmd_decode_posts``,
+``cmd_error_rate``, ``cmd_rs_recover``, ``cmd_read_cost``): the same flags,
+the same output files and the same JSON lines. ``encode`` and the three
+list commands run on the host. ``simulate``, ``sim-decode`` and
+``decode-posts`` decode on the card: they add ``--device`` (default
+``cuda``; no fallback to the CPU), and ``sim-decode`` and ``decode-posts``
+add ``--batch``, the number of reads decoded together. ``decode-posts``
+reads flappie's ``.post`` files, with ``--with-barcodes`` also the
+``.fastq`` and ``.trans`` beside each, and writes the ``list_<i>`` files
+and ``info.txt`` of the reference's generate_decoded_lists.py, which the
+list commands read. Of the reference's commands only ``simulate-signal``
+is not ported: it trains a basecaller first, and waits for the trainer.
+The basecaller chain itself is ported as a library
+(``pipeline/basecall.py`` ``Basecaller``), as the reference has no
+basecall command either.
 """
 from __future__ import annotations
 
@@ -53,6 +58,88 @@ def _experiment(args):
         bytes_per_oligo=args.bytes_per_oligo,
         rs_redundancy=args.rs_redundancy,
         conv_mem=args.mem, conv_rate=args.rate, pad=args.pad)
+
+
+def cmd_encode(args):
+    """Encode a file to oligos: one line each, the barcoded ones as FASTA
+    with ``--fasta``. Prints one JSON line and returns its record."""
+    from .pipeline.encode import encode_file, write_fasta
+
+    exp = _experiment(args)
+    res = encode_file(args.infile, exp)
+    out = pathlib.Path(args.outfile)
+    with open(out, "w") as f:
+        for o in res.oligos:
+            f.write(o + "\n")
+    if args.fasta:
+        write_fasta(args.fasta, res.oligos_barcoded)
+    rec = {"oligo_len": res.oligo_len, "msg_len": res.msg_len,
+           "num_oligos_data": res.num_oligos_data,
+           "num_oligos_RS": res.num_oligos_rs,
+           "writing_rate_bits_per_base": round(res.writing_rate, 4)}
+    print(json.dumps(rec))
+    return rec
+
+
+def cmd_simulate(args):
+    """Inner-code Monte-Carlo accuracy trial (simulator.py equivalent): one
+    ``LVADecoder`` per orientation on ``--device``; reads are drawn from
+    one ``rng`` in the reference's order (a batch's messages, then each
+    read's orientation, channel and posterior). Prints one JSON line and
+    returns its record."""
+    from .coding.conv import (conv_encode_bases, make_conv_code,
+                              reverse_complement_bases)
+    from .config import ConvCodeConfig, DecodeConfig
+    from .io.post import pack_posts
+    from .ops.lva import LVADecoder
+    from .ops.synthetic import synthetic_post
+    from .signal.channel import simulate_indelsubs
+
+    rng = np.random.default_rng(args.seed)
+    cfg = ConvCodeConfig(mem=args.mem, rate=args.rate, msg_len=args.msg_len)
+    code = make_conv_code(cfg)
+    decs = {rc: LVADecoder(DecodeConfig(
+        code=ConvCodeConfig(mem=args.mem, rate=args.rate,
+                            msg_len=args.msg_len, rc=rc),
+        list_size=args.list_size, max_deviation=args.max_deviation),
+        device=args.device)
+        for rc in (False, True)}
+    stats = dict(top=0, lst=0, hamming=[])
+    for lo in range(0, args.num_trials, args.batch):
+        n = min(args.batch, args.num_trials - lo)
+        msgs = rng.integers(0, 2, (n, args.msg_len), dtype=np.uint8)
+        bases = conv_encode_bases(code, msgs)
+        posts, rcs = [], []
+        for b in bases:
+            rc = bool(rng.integers(2))
+            seq = reverse_complement_bases(b) if rc else b
+            noisy = simulate_indelsubs(seq, rng, args.sub, args.del_p,
+                                       args.ins)
+            posts.append(synthetic_post(noisy, rng))
+            rcs.append(rc)
+        batch, nblks = pack_posts(posts)
+        rcs = np.asarray(rcs)
+        for rc in (False, True):
+            sel = np.nonzero(rcs == rc)[0]
+            if not len(sel):
+                continue
+            out, _, valid = decs[rc].decode(batch[sel], nblks[sel])
+            for j, gi in enumerate(sel):
+                want = msgs[gi]
+                lst = [m for m, v in zip(out[j], valid[j]) if v]
+                if len(lst) and (lst[0] == want).all():
+                    stats["top"] += 1
+                if any((m == want).all() for m in lst):
+                    stats["lst"] += 1
+                if len(lst):
+                    stats["hamming"].append(int((lst[0] != want).sum()))
+    rec = {"num_trials": args.num_trials,
+           "top_correct": stats["top"] / args.num_trials,
+           "list_correct": stats["lst"] / args.num_trials,
+           "mean_hamming": float(np.mean(stats["hamming"]))
+           if stats["hamming"] else None}
+    print(json.dumps(rec))
+    return rec
 
 
 def cmd_sim_decode(args):
@@ -237,9 +324,89 @@ def cmd_read_cost(args):
     return rec
 
 
+def cmd_decode_posts(args):
+    """Decode flappie's artifacts (``.post`` [+ ``.fastq`` + ``.trans``])
+    to list files (generate_decoded_lists.py for basecalled reads), in
+    batches of ``--batch`` reads on ``--device``. Prints one JSON line;
+    returns (its record, the forward block steps the decoders ran)."""
+    import glob
+    import os
+
+    from .io.post import read_post
+    from .pipeline.decode import PipelineDecoder
+    from .pipeline.real_data import (ReadDecodeRecord,
+                                     decode_posts_with_barcodes,
+                                     load_flappie_artifacts,
+                                     write_decoded_lists)
+
+    exp = _experiment(args)
+    post_files = sorted(glob.glob(os.path.join(args.post_dir, "*.post")))
+    if not post_files:
+        raise SystemExit(f"no .post files in {args.post_dir}")
+    dec = PipelineDecoder(exp, args.list_size, args.max_deviation,
+                          device=args.device)
+    num_oligos = 1 << exp.framing.index_len
+    if args.with_barcodes:
+        ids, posts, calls, transes = [], [], [], []
+        for pf in post_files:
+            stem = pf[: -len(".post")]
+            post, call, trans = load_flappie_artifacts(
+                pf, stem + ".fastq", stem + ".trans")
+            ids.append(os.path.basename(stem))
+            posts.append(post)
+            calls.append(call)
+            transes.append(trans)
+        records = decode_posts_with_barcodes(
+            ids, posts, calls, transes, exp, args.list_size,
+            max_deviation=args.max_deviation, decoder=dec, batch=args.batch)
+    else:
+        # posts already truncated to the payload window; decode fwd + rc and
+        # keep the orientation the gated pick chooses
+        records = []
+        for lo in range(0, len(post_files), args.batch):
+            chunk = post_files[lo:lo + args.batch]
+            out, use_rc = dec.decode_posts_auto_orientation(
+                [read_post(pf) for pf in chunk], num_oligos)
+            for i, pf in enumerate(chunk):
+                msgs = ["".join(map(str, m))
+                        for m, v in zip(out.msgs[i], out.valid[i]) if v]
+                records.append(ReadDecodeRecord(
+                    os.path.basename(pf)[: -len(".post")], "ok",
+                    bool(use_rc[i]), msgs=msgs))
+    os.makedirs(args.outdir, exist_ok=True)
+    write_decoded_lists(args.outdir, records)
+    ok = sum(1 for r in records if r.status == "ok")
+    rec = {"reads": len(records), "decoded": ok}
+    print(json.dumps(rec))
+    return rec, dec.steps
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="nanopore_dna_storage_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("encode")
+    _add_exp_args(p)
+    p.add_argument("-i", "--infile", required=True)
+    p.add_argument("-o", "--outfile", required=True)
+    p.add_argument("--fasta")
+    p.set_defaults(fn=cmd_encode)
+
+    p = sub.add_parser("simulate")
+    p.add_argument("--mem", type=int, default=11)
+    p.add_argument("--rate", type=int, default=5)
+    p.add_argument("--msg-len", type=int, default=180)
+    p.add_argument("--list-size", type=int, default=8)
+    p.add_argument("--num-trials", type=int, default=32)
+    p.add_argument("--max-deviation", type=int, default=20)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--sub", type=float, default=0.004)
+    p.add_argument("--del-p", type=float, default=0.0085)
+    p.add_argument("--ins", type=float, default=0.0005)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the decode (cuda or cpu)")
+    p.set_defaults(fn=cmd_simulate)
 
     p = sub.add_parser("sim-decode")
     _add_exp_args(p)
@@ -257,6 +424,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device of the decode (cuda or cpu)")
     p.set_defaults(fn=cmd_sim_decode)
+
+    p = sub.add_parser("decode-posts")
+    _add_exp_args(p)
+    p.add_argument("--post-dir", required=True)
+    p.add_argument("--outdir", required=True)
+    p.add_argument("--list-size", type=int, default=8)
+    p.add_argument("--max-deviation", type=int, default=20)
+    p.add_argument("--with-barcodes", action="store_true",
+                   help="expect .fastq/.trans next to each .post and locate "
+                        "barcodes (generate_decoded_lists.py flow)")
+    p.add_argument("--batch", type=int, default=8,
+                   help="reads decoded together; at m=11 each holds about "
+                        "2.1 GB of selections on the device")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the decode (cuda or cpu)")
+    p.set_defaults(fn=cmd_decode_posts)
 
     p = sub.add_parser("error-rate")
     _add_exp_args(p)

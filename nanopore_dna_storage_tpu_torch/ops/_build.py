@@ -53,31 +53,41 @@ def nvcc() -> str:
     return found
 
 
-def build(name: str, sources) -> pathlib.Path:
-    """Compile ``sources`` (names in ``csrc/``) into ``lib<name>-<hash>.so``;
-    the compiler's output is kept beside it as ``.log``."""
-    paths = [CSRC / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def compiled(compiler: str, flags, paths, out_dir: pathlib.Path,
+             stem: str) -> pathlib.Path:
+    """``paths`` compiled by ``compiler`` with ``flags`` (which end in
+    ``-shared``) into ``out_dir/<stem>-<hash>.so``, the hash of the flags
+    and the sources, unless it is there; the compiler's output is kept
+    beside it as ``.log``. Raises RuntimeError if the compiler fails."""
+    digest = hashlib.sha256(" ".join(flags).encode())
     for p in paths:
         digest.update(p.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = out_dir / f"{stem}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
         res = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, paths)],
+            [compiler, *flags, "-o", tmp, *map(str, paths)],
             capture_output=True, text=True, check=False)
         out.with_suffix(".log").write_text(res.stdout + res.stderr)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
+            raise RuntimeError(f"{pathlib.Path(compiler).name} failed for "
+                               f"{stem}:\n{res.stderr}")
         os.replace(tmp, out)  # atomic: two processes building at once both succeed
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build(name: str, sources) -> pathlib.Path:
+    """Compile ``sources`` (names in ``csrc/``) into ``lib<name>-<hash>.so``
+    with nvcc; the compiler's output is kept beside it as ``.log``."""
+    return compiled(nvcc(), NVCC_FLAGS, [CSRC / s for s in sources],
+                    BUILD_DIR, f"lib{name}")
 
 
 def check_tensor(name, t, dtype, shape, device) -> None:

@@ -213,9 +213,49 @@ def test_forbidden_matches_by_name_or_dotted_prefix():
     assert not _forbidden("nanopore_dna_storage_tpu_torch.coding.conv")
 
 
-def test_port_imports_nothing_of_jax():
+# modules of the port the guards below must reach, in every subpackage
+PORT_MODULES = ("cli.py", "coding/conv.py", "io/fast5.py", "io/lists.py",
+                "models/flipflop.py", "native/__init__.py", "ops/lva.py",
+                "ops/vocab.py", "parallel/mesh.py", "pipeline/data_prep.py",
+                "pipeline/real_data.py", "probes/expand.py",
+                "signal/barcode.py", "trellis/tables.py")
+
+
+def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    walked = {f.relative_to(PORT).as_posix() for f in files
+              if PORT in f.parents}
+    assert set(PORT_MODULES) <= walked, set(PORT_MODULES) - walked
+    return files
+
+
+def test_port_imports_nothing_of_jax():
+    files = _port_files()
     assert len(files) > 20
     bad = [f"{f.relative_to(ROOT)}:{line} imports {name}"
            for f in files for name, line in _imports(f) if _forbidden(name)]
+    assert not bad, bad
+
+
+def _module_level(nodes):
+    """Import statements run when a module is imported: those outside
+    function and class bodies."""
+    for node in nodes:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        elif not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                   ast.ClassDef)):
+            yield from _module_level(ast.iter_child_nodes(node))
+
+
+def test_port_imports_h5py_only_inside_functions():
+    """The card's machine has no h5py: importing any module of the port
+    (the CLI and ``pipeline/real_data.py`` among them) must not need it."""
+    bad = []
+    for f in _port_files():
+        for node in _module_level(ast.parse(f.read_text()).body):
+            names = [a.name for a in node.names] if isinstance(
+                node, ast.Import) else [node.module or ""]
+            bad += [f"{f.relative_to(ROOT)}:{node.lineno}" for n in names
+                    if n == "h5py" or n.startswith("h5py.")]
     assert not bad, bad
