@@ -130,7 +130,19 @@ Phases, each fatal on failure:
    vocabulary goldens through ``decode_post_vocab`` on the card equal to
    the reference's ``.out``, and a larger case (16 ten-mers, msg_len 20)
    equal to the CPU's, timed; the native host library (``native/``) built
-   or not, and its three functions equal to numpy.
+   or not, and its three functions equal to numpy;
+11. the training path (``models/train.py``): (a) at the published widths
+   on the production recipe, the card's CRF loss and every parameter's
+   gradient against the CPU's on the same weights and batch, under a
+   caller's TF32 setting that the trainer overrides, then
+   ``TRAIN_STEPS`` train steps timed, one more profiled for its device
+   operations, every loss finite; (b)
+   ``simulate_and_decode_signal(params=None)`` at the JAX package's
+   signal-fidelity test settings, trained and decoded on the card, held
+   to that test's floor, one K1 launch per block step; (c) its trained
+   basecaller on experiment-7 reads, one K1 launch per block step; (d)
+   ``cli simulate-signal`` in this process, printing the JAX command's
+   keys.
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
@@ -152,9 +164,13 @@ start and job seconds and peak memory, the classification's times and
 device operations), ``{"real_data": {...}}`` (phase 10: the ok share,
 the basecall's, the barcode search's, the decode's and each command's
 seconds, K1 launches against block steps, the raw-signal leg, the vocab
-times, whether the native library was built), the card's name and power
-limit, and ``{"kernels": [...]}`` (K1's entry adds phase 9's launches as
-``parallel_launches`` and phase 10's as ``real_data_launches``); the last
+times, whether the native library was built), ``{"train": {...}}``
+(phase 11: the card's loss and gradient errors against the CPU's, s/step,
+device operations, device time, idle share and peak memory of a train
+step, the losses, and each of 11b-11d's seconds, stats and K1 launches),
+the card's name and power limit, and ``{"kernels": [...]}`` (K1's entry
+adds phase 9's launches as ``parallel_launches``, phase 10's as
+``real_data_launches`` and phase 11's as ``train_launches``); the last
 is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
@@ -181,11 +197,13 @@ try:
     from nanopore_dna_storage_tpu_torch.coding.framing import (
         check_and_extract, frame_oligos)
     from nanopore_dna_storage_tpu_torch.config import (ConvCodeConfig,
-                                                       DecodeConfig)
+                                                       DecodeConfig,
+                                                       ExperimentConfig)
     from nanopore_dna_storage_tpu_torch.io.post import (pack_posts, read_post,
                                                         write_post)
     from nanopore_dna_storage_tpu_torch.models.flipflop import (
-        FlipflopConfig, FlipflopNet, init_params)
+        FlipflopConfig, FlipflopNet, f32_matmul, init_params)
+    from nanopore_dna_storage_tpu_torch.models import train as trainmod
     from nanopore_dna_storage_tpu_torch import native
     from nanopore_dna_storage_tpu_torch.coding.conv import (make_conv_code,
                                                             str_to_bases)
@@ -210,8 +228,8 @@ try:
     from nanopore_dna_storage_tpu_torch.pipeline.real_data import (
         decode_posts_with_barcodes, locate_payload)
     from nanopore_dna_storage_tpu_torch.pipeline.simulate import (
-        signal_batch, simulate_posts, simulate_posts_signal,
-        simulate_raw_reads)
+        signal_batch, simulate_and_decode_signal, simulate_posts,
+        simulate_posts_signal, simulate_raw_reads)
     from nanopore_dna_storage_tpu_torch.probes import (expand, lowering,
                                                        merge_roofline,
                                                        mxu_expand, treepop)
@@ -219,6 +237,7 @@ try:
         levenshtein_windows
     from nanopore_dna_storage_tpu_torch.signal.channel import \
         simulate_indelsubs
+    from nanopore_dna_storage_tpu_torch.utils import profiling
 except ImportError as e:
     sys.exit(f"chip_smoke: FAIL: the port package is not beside this "
              f"script: {e}")
@@ -257,6 +276,33 @@ REAL_READS = 64
 REAL_BATCH = 16
 RAW_READS = 8
 VOCAB_WORDS, VOCAB_WORD_LEN, VOCAB_MSG_LEN = 16, 10, 20
+# phase 11a: the trainer at the published widths on the production recipe
+# (tests/test_signal_fidelity_production.py:45-47): kmer 6, 8 reads of 60
+# bases a step (720 samples, 360 blocks), Adam at 3e-3 with warm-up and
+# cosine; TRAIN_STEPS steps on the card, one of them profiled
+TRAIN_STEPS = 12
+TRAIN_BATCH, TRAIN_SEQ_LEN, TRAIN_LR, TRAIN_KMER = 8, 60, 3e-3, 6
+# 11a: the card's loss and gradients against the CPU's on the same weights
+# and batch, under the caller's "high" (TF32) setting, which the trainer
+# must override: the loss relative, each parameter's gradient within
+# TRAIN_GRAD_TOL of its largest component (the same float32 chain summed
+# in another order by cuBLAS and the CPU's BLAS, forward and backward
+# through five recurrent layers of 360 steps; TF32 would miss it by ~1e-3)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+# phase 11b: tests/test_signal_fidelity.py:21-35 on the card, and its floor
+FIDELITY_EXP = dict(bytes_per_oligo=4, rs_redundancy=0.5, conv_mem=6,
+                    conv_rate=1)
+FIDELITY_READS, FIDELITY_STEPS = 24, 300
+# phase 11c: experiment-7 reads through 11b's trained basecaller, decoded
+# 8 reads a batch (each read's selections take ~2.1 GB on the card)
+TRAINED_READS, TRAINED_BATCH = 16, 8
+# phase 11d: the simulate-signal command, at 11b's code and a short training
+SIGNAL_CLI_ARGS = ["--bytes-per-oligo", "4", "--rs-redundancy", "0.5",
+                   "--mem", "6", "--rate", "1", "--num-reads", "8",
+                   "--train-steps", "10"]
+SIGNAL_CLI_KEYS = ["num_reads", "crc_pass", "list_correct", "top_correct",
+                   "unique_indices"]
 # every kernel library and its sources in csrc/
 LIBS = {"lva_acs": ["lva_acs.cu"], "lva_lse": ["lva_lse.cu"],
         "probes": ["probes.cu"], "expand": ["expand.cu"],
@@ -2641,6 +2687,195 @@ def phase_real_data(enc, exp, data: bytes, gpu: str, exp_args):
     return launches, line
 
 
+def loss_and_grads(state, batch):
+    """The CRF loss of ``state``'s net on ``batch`` and its gradient for
+    every parameter, as ``train_step`` computes them, on its device."""
+    with f32_matmul():
+        loss = trainmod.crf_loss(state.net, *batch)
+        grads = torch.autograd.grad(loss, state.opt.params)
+    return float(loss.detach()), [g.cpu() for g in grads]
+
+
+def phase_train_full() -> dict:
+    """Phase 11a: the trainer at the published widths (``FlipflopConfig()``)
+    on the production recipe. (1) The same ``init_params`` weights
+    (``torch.Generator`` seed ``SEED``) and the first ``synthetic_batches``
+    batch on the card and through the CPU: the loss within
+    ``TRAIN_LOSS_TOL`` and every parameter's gradient within
+    ``TRAIN_GRAD_TOL`` of its largest component, the card's computed under
+    ``torch.set_float32_matmul_precision("high")``. (2) ``TRAIN_STEPS``
+    ``train_step``s on the card over fresh batches (made before the clock
+    starts), each between two synchronisations; every loss finite. (3) One
+    more step under ``torch.profiler``: its device operations and time.
+    Returns the ``11a`` entry of the ``train`` line."""
+    cfg = FlipflopConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(SEED))
+    pad_T = TRAIN_SEQ_LEN * 12
+    gen = trainmod.synthetic_batches(
+        np.random.default_rng(SEED), TRAIN_BATCH, TRAIN_SEQ_LEN, pad_T,
+        TRAIN_SEQ_LEN + 2, kmer=TRAIN_KMER, device="cpu")
+    batches = [next(gen)[:4] for _ in range(TRAIN_STEPS + 2)]
+    init_c, step_c = trainmod.make_trainer(cfg, TRAIN_LR, TRAIN_STEPS + 1,
+                                           device="cuda")
+    init_h, _ = trainmod.make_trainer(cfg, TRAIN_LR, TRAIN_STEPS + 1,
+                                      device="cpu")
+    card = init_c(params=params)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        loss_c, grads_c = loss_and_grads(card, [x.cuda() for x in batches[0]])
+    finally:
+        torch.set_float32_matmul_precision(before)
+    t0 = time.perf_counter()
+    loss_h, grads_h = loss_and_grads(init_h(params=params), batches[0])
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss_c - loss_h) / abs(loss_h)
+    if not (np.isfinite(loss_c) and loss_err <= TRAIN_LOSS_TOL):
+        fail(f"phase 11a: the card's loss {loss_c} against the CPU's "
+             f"{loss_h}")
+    grad_err = {}
+    for (name, _), gc, gh in zip(card.net.named_parameters(), grads_c,
+                                 grads_h):
+        grad_err[name] = float((gc - gh).abs().max() / gh.abs().max())
+        if not grad_err[name] <= TRAIN_GRAD_TOL:
+            fail(f"phase 11a: {name}'s gradient on the card is "
+                 f"{grad_err[name]} of its largest component off the CPU's")
+    log(f"phase 11a: loss {loss_c:.6f} on the card, {loss_h:.6f} on the CPU "
+        f"({cpu_s:.2f} s there), relative error {loss_err:.3g}; gradients "
+        f"within {max(grad_err.values()):.3g} of each largest component "
+        f"(tolerance {TRAIN_GRAD_TOL}; TF32 asked for and refused)")
+
+    batches = [[x.cuda() for x in b] for b in batches[1:]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for b in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        losses.append(float(step_c(card, *b)))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"phase 11a: a loss is not finite: {losses}")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_c(card, *batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    ops, dev_ms = device_ops(prof)
+    steady = float(np.mean(step_s[1:]))
+    log(f"phase 11a: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, T={pad_T} "
+        f"samples: first {step_s[0]:.3f} s, then {steady:.4f} s/step; one "
+        f"step {ops} device ops, device {dev_ms:.2f} ms of {prof_s:.3f} s "
+        f"(idle share {1 - dev_ms / 1e3 / prof_s:.4f}); peak "
+        f"{peak / 2**30:.3f} GiB; losses {[round(x, 4) for x in losses]}")
+    return {"widths": dataclasses.asdict(cfg), "batch": TRAIN_BATCH,
+            "seq_len": TRAIN_SEQ_LEN, "T": pad_T, "kmer": TRAIN_KMER,
+            "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+            "loss_card": loss_c, "loss_cpu": loss_h,
+            "loss_rel_err": loss_err, "loss_tolerance": TRAIN_LOSS_TOL,
+            "grad_rel_err": grad_err, "grad_tolerance": TRAIN_GRAD_TOL,
+            "cpu_grad_s": cpu_s, "step_s": step_s, "s_per_step": steady,
+            "step_device_ops": ops, "step_device_ms": dev_ms,
+            "profiled_step_s": prof_s,
+            "idle_share": 1 - dev_ms / 1e3 / prof_s,
+            "peak_gib": peak / 2**30, "losses": losses}
+
+
+def timed_sections() -> dict:
+    """The seconds of ``simulate_and_decode_signal``'s train and decode
+    sections since the last ``profiling.reset_timings``."""
+    return {k.split("/")[1]: v["total_s"]
+            for k, v in profiling.timing_summary().items()
+            if k.startswith("simulate_signal/")}
+
+
+def phase_train(enc, exp, gpu: str):
+    """Phase 11: the training path. (a) ``phase_train_full``. (b)
+    ``simulate_and_decode_signal(params=None)`` on the card at
+    ``tests/test_signal_fidelity.py``'s settings (m=6 r=1, 4 bytes an
+    oligo, RS 0.5, 24 reads, L=4, max deviation 16, 300 steps, kmer 1):
+    its floor (list_correct >= reads / 2, crc_pass >= list_correct,
+    unique_indices >= 3), its train and decode seconds apart
+    (``utils/profiling.timed``), one K1 launch per block step. (c) 11b's
+    trained basecaller decoding ``TRAINED_READS`` experiment-7 reads of
+    ``enc`` (L=8, max deviation 20) through
+    ``simulate_and_decode_signal(params=net)``, one K1 launch per block
+    step; the accuracy is reported, not gated. (d) ``cli simulate-signal``
+    in this process at 11b's code and a short training, printing the JAX
+    command's keys. The K1 counts are set to 0 before each of (b)-(d).
+    Returns the K1 launches of (b)-(d) and the ``train`` line."""
+    line = {"gpu": gpu, "11a": phase_train_full()}
+    torch.cuda.empty_cache()
+    fexp = ExperimentConfig(**FIDELITY_EXP)
+    data = np.random.default_rng(2).integers(0, 256, 24,
+                                             dtype=np.uint8).tobytes()
+    launches = {}
+
+    profiling.reset_timings()
+    lva_acs.LAUNCHES = 0
+    stats, net = simulate_and_decode_signal(
+        encode_bytes(data, fexp), fexp, num_reads=FIDELITY_READS,
+        list_size=4, seed=3, max_deviation=16, train_steps=FIDELITY_STEPS,
+        kmer=1, device="cuda")
+    launches["11b"] = lva_acs.LAUNCHES
+    secs = timed_sections()
+    log(f"phase 11b: simulate_and_decode_signal(params=None): train "
+        f"{FIDELITY_STEPS} steps {secs['train']:.3f} s "
+        f"({secs['train'] / FIDELITY_STEPS:.4f} s/step), decode "
+        f"{secs['decode']:.3f} s; {json.dumps(vars(stats))}; "
+        f"{launches['11b']} K1 launches")
+    if launches["11b"] == 0 or launches["11b"] != stats.steps:
+        fail(f"phase 11b: {launches['11b']} K1 launches for {stats.steps} "
+             f"block steps")
+    if not (stats.num_reads == FIDELITY_READS
+            and stats.list_correct >= stats.num_reads * 0.5
+            and stats.crc_pass >= stats.list_correct
+            and stats.unique_indices >= 3):
+        fail(f"phase 11b: under test_signal_fidelity's floor: {vars(stats)}")
+    line["11b"] = {"reads": FIDELITY_READS, "train_steps": FIDELITY_STEPS,
+                   "train_s": secs["train"], "decode_s": secs["decode"],
+                   "s_per_train_step": secs["train"] / FIDELITY_STEPS,
+                   "stats": vars(stats), "k1_launches": launches["11b"]}
+
+    profiling.reset_timings()
+    lva_acs.LAUNCHES = 0
+    stats7, _ = simulate_and_decode_signal(
+        enc, exp, num_reads=TRAINED_READS, params=net, list_size=8,
+        seed=SEED, max_deviation=20, kmer=1, batch=TRAINED_BATCH,
+        device="cuda")
+    launches["11c"] = lva_acs.LAUNCHES
+    secs = timed_sections()
+    log(f"phase 11c: the trained basecaller on {TRAINED_READS} "
+        f"experiment-7 reads: decode {secs['decode']:.3f} s; "
+        f"{json.dumps(vars(stats7))}; {launches['11c']} K1 launches")
+    if launches["11c"] == 0 or launches["11c"] != stats7.steps:
+        fail(f"phase 11c: {launches['11c']} K1 launches for {stats7.steps} "
+             f"block steps")
+    line["11c"] = {"reads": TRAINED_READS, "batch": TRAINED_BATCH,
+                   "decode_s": secs["decode"], "stats": vars(stats7),
+                   "k1_launches": launches["11c"]}
+
+    argv = ["simulate-signal", *SIGNAL_CLI_ARGS, "--seed", str(SEED),
+            "--device", "cuda"]
+    log("phase 11d: cli " + " ".join(argv[1:]))
+    lva_acs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rec, stats_d = cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches["11d"] = lva_acs.LAUNCHES
+    if list(rec) != SIGNAL_CLI_KEYS or rec["num_reads"] != 8:
+        fail(f"phase 11d: simulate-signal printed {rec}")
+    if launches["11d"] != stats_d.steps:
+        fail(f"phase 11d: {launches['11d']} K1 launches for "
+             f"{stats_d.steps} block steps")
+    log(f"phase 11d: {cli_s:.3f} s, {launches['11d']} K1 launches")
+    line["11d"] = {"argv": argv[1:], "s": cli_s, "record": rec,
+                   "k1_launches": launches["11d"]}
+    return sum(launches.values()), line
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2735,6 +2970,10 @@ def main() -> int:
         enc, exp, data, gpu, ["--experiment", "7"])
     log(f"phase 10: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    train_launches, train_line = phase_train(enc, exp, gpu)
+    log(f"phase 11: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs and lva_acs_lse times below: one block step at the main "
         f"path's B={B}")
@@ -2746,6 +2985,7 @@ def main() -> int:
     log(json.dumps({"basecall": basecall_line}))
     log(json.dumps({"parallel": parallel_line}))
     log(json.dumps({"real_data": real_line}))
+    log(json.dumps({"train": train_line}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -2760,6 +3000,9 @@ def main() -> int:
         # phase 10's real-read path: decode-posts with and without
         # barcodes, their in-process references and the raw-signal leg
         "real_data_launches": real_launches,
+        # phase 11's decodes: simulate_and_decode_signal from an untrained
+        # model, its trained net on experiment 7, cli simulate-signal
+        "train_launches": train_launches,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -2,6 +2,7 @@
 
   python -m nanopore_dna_storage_tpu_torch.cli encode -i FILE -o OLIGOS ...
   python -m nanopore_dna_storage_tpu_torch.cli simulate ...
+  python -m nanopore_dna_storage_tpu_torch.cli simulate-signal ...
   python -m nanopore_dna_storage_tpu_torch.cli sim-decode -i FILE ...
   python -m nanopore_dna_storage_tpu_torch.cli decode-posts --post-dir D ...
   python -m nanopore_dna_storage_tpu_torch.cli error-rate --lists-dir D ...
@@ -10,21 +11,21 @@
 
 Counterpart of ``nanopore_dna_storage_tpu/cli.py``'s commands of the same
 names (``_add_exp_args``, ``_experiment``, ``cmd_encode``,
-``cmd_simulate``, ``cmd_sim_decode``, ``cmd_decode_posts``,
-``cmd_error_rate``, ``cmd_rs_recover``, ``cmd_read_cost``): the same flags,
-the same output files and the same JSON lines. ``encode`` and the three
-list commands run on the host. ``simulate``, ``sim-decode`` and
-``decode-posts`` decode on the card: they add ``--device`` (default
-``cuda``; no fallback to the CPU), and ``sim-decode`` and ``decode-posts``
-add ``--batch``, the number of reads decoded together. ``decode-posts``
-reads flappie's ``.post`` files, with ``--with-barcodes`` also the
-``.fastq`` and ``.trans`` beside each, and writes the ``list_<i>`` files
-and ``info.txt`` of the reference's generate_decoded_lists.py, which the
-list commands read. Of the reference's commands only ``simulate-signal``
-is not ported: it trains a basecaller first, and waits for the trainer.
-The basecaller chain itself is ported as a library
-(``pipeline/basecall.py`` ``Basecaller``), as the reference has no
-basecall command either.
+``cmd_simulate``, ``cmd_simulate_signal``, ``cmd_sim_decode``,
+``cmd_decode_posts``, ``cmd_error_rate``, ``cmd_rs_recover``,
+``cmd_read_cost``): the same flags, the same output files and the same
+JSON lines. ``encode`` and the three list commands run on the host.
+``simulate``, ``simulate-signal``, ``sim-decode`` and ``decode-posts`` run
+on the card: they add ``--device`` (default ``cuda``; no fallback to the
+CPU), and ``sim-decode`` and ``decode-posts`` add ``--batch``, the number
+of reads decoded together. ``simulate-signal`` trains a basecaller from
+scratch on the hermetic pore model, then decodes simulated raw-signal
+reads through it. ``decode-posts`` reads flappie's ``.post`` files, with
+``--with-barcodes`` also the ``.fastq`` and ``.trans`` beside each, and
+writes the ``list_<i>`` files and ``info.txt`` of the reference's
+generate_decoded_lists.py, which the list commands read. The basecaller
+chain itself is ported as a library (``pipeline/basecall.py``
+``Basecaller``), as the reference has no basecall command either.
 """
 from __future__ import annotations
 
@@ -140,6 +141,31 @@ def cmd_simulate(args):
            if stats["hamming"] else None}
     print(json.dumps(rec))
     return rec
+
+
+def cmd_simulate_signal(args):
+    """Signal-fidelity Monte-Carlo decode accuracy (simulator.py:59-116):
+    squiggle -> basecaller (trained from scratch on the hermetic pore model
+    on ``--device``) -> fwd-bwd -> list-Viterbi -> CRC/index. Prints one
+    JSON line; returns (that record, SimStats)."""
+    from .pipeline import encode_bytes
+    from .pipeline.simulate import simulate_and_decode_signal
+
+    exp = _experiment(args)
+    rng = np.random.default_rng(args.seed)
+    data = rng.integers(0, 256, args.data_size, dtype=np.uint8).tobytes()
+    enc = encode_bytes(data, exp)
+    stats, _ = simulate_and_decode_signal(
+        enc, exp, num_reads=args.num_reads, list_size=args.list_size,
+        seed=args.seed, max_deviation=args.max_deviation,
+        train_steps=args.train_steps, kmer=args.kmer, device=args.device)
+    rec = {"num_reads": stats.num_reads,
+           "crc_pass": stats.crc_pass,
+           "list_correct": stats.list_correct,
+           "top_correct": stats.top_correct,
+           "unique_indices": stats.unique_indices}
+    print(json.dumps(rec))
+    return rec, stats
 
 
 def cmd_sim_decode(args):
@@ -407,6 +433,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device of the decode (cuda or cpu)")
     p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("simulate-signal")
+    _add_exp_args(p)
+    p.add_argument("--data-size", type=int, default=24)
+    p.add_argument("--num-reads", type=int, default=32)
+    p.add_argument("--list-size", type=int, default=4)
+    p.add_argument("--max-deviation", type=int, default=16)
+    p.add_argument("--train-steps", type=int, default=300)
+    p.add_argument("--kmer", type=int, default=1,
+                   help="pore-model context (1 = quickly learnable, "
+                        "6 = production model, needs long training)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the training and the decode (cuda "
+                        "or cpu)")
+    p.set_defaults(fn=cmd_simulate_signal)
 
     p = sub.add_parser("sim-decode")
     _add_exp_args(p)

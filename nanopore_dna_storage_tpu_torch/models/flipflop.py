@@ -26,7 +26,8 @@ the posteriors. ``init_params`` draws from an explicit ``torch.Generator``,
 so its numbers differ from ``jax.random``'s; ``params_from_numpy`` carries
 the JAX package's parameters (its ``init_params``, ``load_npz``, and the
 ``models/weights.py`` and ``models/import_taiyaki.py`` parsers: the same key
-names and ``x @ W`` layouts) into a ``FlipflopNet``.
+names and ``x @ W`` layouts) into a ``FlipflopNet``, and ``load_npz`` reads
+such a dict from an ``.npz`` file.
 """
 from __future__ import annotations
 
@@ -189,18 +190,24 @@ def grumod_scan(xproj: torch.Tensor, sw: torch.Tensor,
     t = T - 1 when ``reverse``."""
     B, T, _ = xproj.shape
     h = sw.shape[0]
-    out = xproj.new_empty((B, T, h))
     state = xproj.new_zeros((B, h))
+    # the states are stacked once at the end: writing each into a buffer
+    # would give autograd T copies of the whole [B, T, h] gradient
+    states = []
+    # unbind: one backward node stacks the T steps' input gradients
+    vs = xproj.unbind(1)
     with f32_matmul():
         for t in (range(T - 1, -1, -1) if reverse else range(T)):
-            v = xproj[:, t]
+            v = vs[t]
             u = state @ sw  # [B, 3h]
             zr = torch.sigmoid(v[:, :2 * h] + u[:, :2 * h])
             z, r = zr[:, :h], zr[:, h:]
             hbar = torch.tanh(r * u[:, 2 * h:] + v[:, 2 * h:])
             state = z * state + (1.0 - z) * hbar
-            out[:, t] = state
-    return out
+            states.append(state)
+    if reverse:
+        states.reverse()
+    return torch.stack(states, dim=1)
 
 
 def _partition_step(prev: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -225,11 +232,10 @@ def crf_log_partition(trans: torch.Tensor, nblk: torch.Tensor
     it was."""
     B, T, _ = trans.shape
     t58 = trans.reshape(B, T, NBASE + 1, NSTATE)
-    act = active_blocks(nblk, T)
+    act = active_blocks(nblk, T)[..., None]
     prev = trans.new_zeros((B, NSTATE))
-    for t in range(T):
-        prev = torch.where(act[:, t, None], _partition_step(prev, t58[:, t]),
-                           prev)
+    for blk, a in zip(t58.unbind(1), act.unbind(1)):
+        prev = torch.where(a, _partition_step(prev, blk), prev)
     return torch.logsumexp(prev, dim=1)
 
 
@@ -239,7 +245,9 @@ class FlipflopNet(nn.Module):
     parameters keep the JAX package's names and layouts (``conv_w``
     [winlen, 1, nf], ``gru{i}_iw`` [in, 3h], ``gru{i}_sw`` [h, 3h], ...);
     ``features``, ``layer`` and ``head`` are its stages, for a caller that
-    times them."""
+    times them. ``forward`` records no gradient; the stages (and
+    ``states``, ``scores``) do wherever grad is enabled and the parameters
+    require it, which ``models/train.py`` turns on for its own net."""
 
     def __init__(self, cfg: FlipflopConfig,
                  params: Mapping[str, object], device="cuda"):
@@ -272,17 +280,28 @@ class FlipflopNet(nn.Module):
         return grumod_scan(xp, getattr(self, f"gru{i}_sw"),
                            reverse=self.cfg.layer_dirs[i] == "b")
 
-    def head(self, x: torch.Tensor, nsamples: torch.Tensor) -> torch.Tensor:
-        """The CRF head on the last layer's states: tanh, times 5 /
-        temperature (shift_scale_matrix_inplace divides by temperature / 5,
-        layers.c:1084), minus each read's log partition over its own blocks
-        divided by their count."""
+    def scores(self, x: torch.Tensor) -> torch.Tensor:
+        """The CRF head's unnormalised block transitions on the last layer's
+        states: tanh, times 5 / temperature (shift_scale_matrix_inplace
+        divides by temperature / 5, layers.c:1084)."""
         with f32_matmul():
             raw = torch.tanh(x @ self.ff_w + self.ff_b)
-        scaled = raw * (5.0 / self.cfg.temperature)
+        return raw * (5.0 / self.cfg.temperature)
+
+    def head(self, x: torch.Tensor, nsamples: torch.Tensor) -> torch.Tensor:
+        """``scores`` minus each read's log partition over its own blocks
+        divided by their count."""
+        scaled = self.scores(x)
         nblk = -(-nsamples // self.cfg.stride)
         logz = crf_log_partition(scaled, nblk) / nblk.to(scaled.dtype)
         return scaled - logz[:, None, None]
+
+    def states(self, signal: torch.Tensor) -> torch.Tensor:
+        """signal [B, T] -> the last GRU layer's states [B, T', h]."""
+        x = self.features(signal)
+        for i in range(len(self.cfg.layer_dirs)):
+            x = self.layer(i, x)
+        return x
 
     @torch.no_grad()
     def forward(self, signal: torch.Tensor,
@@ -291,10 +310,7 @@ class FlipflopNet(nn.Module):
         if nsamples is None:
             nsamples = torch.full((B,), T, dtype=torch.int64,
                                   device=signal.device)
-        x = self.features(signal)
-        for i in range(len(self.cfg.layer_dirs)):
-            x = self.layer(i, x)
-        return self.head(x, nsamples.to(torch.int64))
+        return self.head(self.states(signal), nsamples.to(torch.int64))
 
 
 def flipflop_transitions(params, cfg: FlipflopConfig, signal: torch.Tensor,
@@ -320,6 +336,15 @@ def as_net(params, cfg: Optional[FlipflopConfig] = None,
             return params
         cfg, params = params.cfg, dict(params.named_parameters())
     return params_from_numpy(params, cfg, device=device)
+
+
+def load_npz(path: str, cfg: Optional[FlipflopConfig] = None,
+             device="cuda") -> FlipflopNet:
+    """Converted weights saved as an ``.npz`` of the JAX package's parameter
+    names (its ``load_npz``) as a ``FlipflopNet`` on ``device``."""
+    with np.load(path) as data:
+        return params_from_numpy({k: data[k] for k in data.files}, cfg,
+                                 device=device)
 
 
 def params_from_numpy(arrays: Mapping[str, np.ndarray],

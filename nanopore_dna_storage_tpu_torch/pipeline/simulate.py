@@ -9,9 +9,9 @@ fidelities:
 * ``channel``: sequence-level sub/del/ins errors rendered straight into
   synthetic flip-flop posteriors (``ops/synthetic.py``);
 * ``signal``: squiggle synthesis (``signal/squiggle.py``), then the
-  basecaller's network and its forward-backward posteriors on the device.
-  It takes a basecaller's parameters: training one (the reference's
-  ``models/train.py``) is not ported yet.
+  basecaller's network and its forward-backward posteriors on the device,
+  from a basecaller the caller gives or one trained from scratch on the
+  hermetic pore model (``models/train.py``).
 
 The channel, the posterior renderer, the squiggle and the normalisation are
 the port's own copies of the reference's numpy modules, so one seed gives
@@ -28,11 +28,13 @@ import torch
 from ..coding import conv as convmod
 from ..config import ExperimentConfig
 from ..models import flipflop as ff
+from ..models import train as trainmod
 from ..ops.fwdbwd import batched_transition_posteriors
 from ..ops.synthetic import synthetic_post
 from ..signal.channel import simulate_indelsubs
 from ..signal.normalize import medmad_normalize
 from ..signal.squiggle import simulate_raw_signal
+from ..utils.profiling import timed
 from . import EncodeResult
 from .decode import PipelineDecoder, majority_vote, recover_file
 
@@ -173,53 +175,67 @@ def simulate_and_decode_signal(enc: EncodeResult, exp: ExperimentConfig,
                                model_cfg: Optional[ff.FlipflopConfig] = None,
                                list_size: int = 8, seed: int = 0,
                                max_deviation: Optional[int] = 20,
-                               kmer: int = 1, batch: int = 16, profile=None,
-                               device="cuda", **decode_kw):
+                               train_steps: int = 300, kmer: int = 1,
+                               learning_rate: float = 1e-2,
+                               lr_schedule: bool = False,
+                               batch: int = 16, train_seq_len: int = 40,
+                               profile=None, device="cuda", **decode_kw):
     """End-to-end SIGNAL-fidelity Monte-Carlo decode accuracy:
     msg -> conv encode -> squiggle -> basecaller -> fwd-bwd -> list-Viterbi
     -> CRC/index classification, per-read accuracy as in the
-    simulator.py:59-116 loop. Returns (SimStats, params).
+    simulator.py:59-116 loop. Returns (SimStats, params): the caller's
+    ``params`` as given, or the net trained here.
 
-    ``params`` (a ``FlipflopNet`` or a parameter dict) is required: the
-    reference trains a basecaller when it is missing, and its trainer
-    (``models/train.py``) is not ported. ``model_cfg`` defaults to the
-    reference's small trainable model; ``device`` runs the network, the
-    posteriors and the decode.
+    Without ``params`` (a ``FlipflopNet`` or a parameter dict) it first
+    trains a basecaller from scratch on the hermetic pore model
+    (``models/train.py`` ``train_on_synthetic``: ``train_steps`` steps of 8
+    reads of ``train_seq_len`` bases, Adam at ``learning_rate``, warm-up
+    and cosine under ``lr_schedule``, seeded with ``seed``). kmer=1 keeps
+    it trainable in seconds; kmer=6 is the production pore model and needs
+    the schedule and longer training. ``model_cfg`` defaults to the
+    reference's small trainable model; ``device`` runs the training, the
+    network, the posteriors and the decode. The training and the decode
+    are timed apart (``utils/profiling.timed``, sections
+    ``simulate_signal/train`` and ``simulate_signal/decode``).
     """
-    if params is None:
-        raise NotImplementedError(
-            "simulate_and_decode_signal needs a basecaller's params: "
-            "training one (models/train.py) is not ported yet (ROADMAP.md, "
-            "Queue 1, item 5)")
     if model_cfg is None:
         model_cfg = ff.FlipflopConfig(winlen=7, stride=2, conv_filters=16,
                                       hidden=32, layer_dirs=("b", "f"))
-    net = ff.as_net(params, model_cfg, device)
-    rng = np.random.default_rng(seed + 1)
-    dec = PipelineDecoder(exp, list_size, max_deviation, device=device,
-                          **decode_kw)
-    num_oligos = enc.num_oligos_data + enc.num_oligos_rs
-    stats = SimStats()
-    seen = set()
-    for lo in range(0, num_reads, batch):
-        n = min(batch, num_reads - lo)
-        posts, rcs, ids = simulate_posts_signal(
-            enc.oligos, n, rng, net, kmer=kmer, profile=profile,
-            device=device)
-        out = dec.decode_posts(posts, rcs, num_oligos)
-        stats.num_reads += n
-        stats.crc_pass += int((out.index >= 0).sum())
-        for j in range(n):
-            if out.index[j] < 0 or int(out.index[j]) != int(ids[j]):
-                continue
-            stats.list_correct += 1
-            seen.add(int(ids[j]))
-            # top = the CRC-passing candidate sits in list slot 0
-            if out.valid[j, 0] and (out.msgs[j, 0]
-                                    == out.chosen_msg[j]).all():
-                stats.top_correct += 1
-    stats.unique_indices = len(seen)
-    stats.steps = dec.steps
+    if params is None:
+        with timed("simulate_signal/train"):
+            state, _ = trainmod.train_on_synthetic(
+                model_cfg, steps=train_steps, batch=8,
+                seq_len=train_seq_len, seed=seed,
+                learning_rate=learning_rate, schedule=lr_schedule,
+                kmer=kmer, device=device)
+        params = state.net.requires_grad_(False)
+    with timed("simulate_signal/decode"):
+        net = ff.as_net(params, model_cfg, device)
+        rng = np.random.default_rng(seed + 1)
+        dec = PipelineDecoder(exp, list_size, max_deviation, device=device,
+                              **decode_kw)
+        num_oligos = enc.num_oligos_data + enc.num_oligos_rs
+        stats = SimStats()
+        seen = set()
+        for lo in range(0, num_reads, batch):
+            n = min(batch, num_reads - lo)
+            posts, rcs, ids = simulate_posts_signal(
+                enc.oligos, n, rng, net, kmer=kmer, profile=profile,
+                device=device)
+            out = dec.decode_posts(posts, rcs, num_oligos)
+            stats.num_reads += n
+            stats.crc_pass += int((out.index >= 0).sum())
+            for j in range(n):
+                if out.index[j] < 0 or int(out.index[j]) != int(ids[j]):
+                    continue
+                stats.list_correct += 1
+                seen.add(int(ids[j]))
+                # top = the CRC-passing candidate sits in list slot 0
+                if out.valid[j, 0] and (out.msgs[j, 0]
+                                        == out.chosen_msg[j]).all():
+                    stats.top_correct += 1
+        stats.unique_indices = len(seen)
+        stats.steps = dec.steps
     return stats, params
 
 

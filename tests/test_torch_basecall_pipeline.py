@@ -7,6 +7,9 @@ written files and the simulation's stats are exact.
 
 The weights are random (no trained basecaller is in the repository), so
 the signal loop decodes no read: its stats are held equal, zeros included.
+Without weights the loop trains a basecaller first (``models/train.py``,
+held to the JAX package by ``test_torch_train.py``); a slow test holds
+that path to ``tests/test_signal_fidelity.py``'s floor.
 """
 import os
 import pathlib
@@ -24,6 +27,7 @@ from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
 from nanopore_dna_storage_tpu_torch import config as port_config
 from nanopore_dna_storage_tpu_torch import pipeline as port_pipeline
 from nanopore_dna_storage_tpu_torch.models import flipflop as port_ff
+from nanopore_dna_storage_tpu_torch.models import train as port_train
 from nanopore_dna_storage_tpu_torch.pipeline import basecall as port_basecall
 from nanopore_dna_storage_tpu_torch.pipeline import simulate as port_sim
 from nanopore_dna_storage_tpu_torch.signal.squiggle import \
@@ -114,11 +118,45 @@ def test_simulate_and_decode_signal_matches(small_net):
     assert got.num_reads == 3 and got.steps > 0
 
 
-def test_simulate_and_decode_signal_needs_params():
+def test_simulate_and_decode_signal_trains_without_params():
+    """Without params the loop trains its basecaller first, as
+    ``train_on_synthetic`` does from the same seed (8 reads a step of
+    ``train_seq_len`` bases), and returns the trained net."""
     pexp = twin(EXP, port_config)
-    with pytest.raises(NotImplementedError, match="train"):
-        port_sim.simulate_and_decode_signal(
-            port_pipeline.encode_bytes(DATA, pexp), pexp, 2, device="cpu")
+    cfg = port_ff.FlipflopConfig(**SMALL)
+    stats, net = port_sim.simulate_and_decode_signal(
+        port_pipeline.encode_bytes(DATA, pexp), pexp, 2, list_size=1,
+        seed=4, max_deviation=8, train_steps=2, train_seq_len=20,
+        model_cfg=cfg, device="cpu")
+    assert isinstance(net, port_ff.FlipflopNet) and net.cfg == cfg
+    assert not any(p.requires_grad for p in net.parameters())
+    assert stats.num_reads == 2 and stats.steps > 0
+    state, losses = port_train.train_on_synthetic(
+        cfg, steps=2, batch=8, seq_len=20, seed=4, learning_rate=1e-2,
+        kmer=1, device="cpu")
+    assert np.isfinite(losses).all()
+    for name, p in net.named_parameters():
+        assert torch.equal(p, getattr(state.net, name).detach()), name
+    untrained = port_ff.init_params(cfg, torch.Generator().manual_seed(4))
+    assert not torch.equal(net.ff_w, untrained["ff_w"])
+
+
+@pytest.mark.slow
+def test_signal_fidelity_decode_accuracy():
+    """``tests/test_signal_fidelity.py`` on the port: a basecaller trained
+    from scratch (300 steps, kmer 1) decodes most of 24 reads of m=6 r=1."""
+    exp = port_config.ExperimentConfig(bytes_per_oligo=4, rs_redundancy=0.5,
+                                       conv_mem=6, conv_rate=1)
+    rng = np.random.default_rng(2)
+    data = rng.integers(0, 256, 24, dtype=np.uint8).tobytes()
+    stats, _ = port_sim.simulate_and_decode_signal(
+        port_pipeline.encode_bytes(data, exp), exp, num_reads=24,
+        list_size=4, seed=3, max_deviation=16, train_steps=300, kmer=1,
+        device="cpu")
+    assert stats.num_reads == 24
+    assert stats.list_correct >= stats.num_reads * 0.5, vars(stats)
+    assert stats.crc_pass >= stats.list_correct
+    assert stats.unique_indices >= 3
 
 
 def test_basecaller_defaults_to_the_card():

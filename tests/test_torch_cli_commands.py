@@ -1,5 +1,5 @@
-"""The port's ``encode``, ``simulate`` and ``decode-posts`` commands against
-the JAX package's.
+"""The port's ``encode``, ``simulate``, ``decode-posts`` and
+``simulate-signal`` commands against the JAX package's.
 
 Each command runs in both packages on the same arguments (the port's
 decoding ones with ``--device cpu``): the JSON lines must be equal, and
@@ -10,6 +10,9 @@ reads (m=6 r=1/2, experiment 7's barcodes: one forward, one reverse
 complement, one broken inside its barcodes, one with its payload cut),
 whole with ``--with-barcodes`` and cut to their payload windows without.
 A subprocess with ``h5py`` blocked runs ``decode-posts`` on them too.
+``simulate-signal`` trains a basecaller, which the JAX command does for
+minutes on the CPU: the port's runs at a tiny size, and its JSON keys are
+held to the JAX command's.
 """
 import json
 import os
@@ -87,6 +90,30 @@ def test_simulate_matches_jax(capsys):
     assert got["num_trials"] == 3 and got["list_correct"] > 0
 
 
+def test_simulate_signal_prints_jax_keys(capsys, monkeypatch):
+    """``simulate-signal --device cpu`` at a tiny size trains a basecaller
+    and decodes its reads; its JSON line has the JAX command's keys (read
+    from the JAX command run on stubbed stats: its own run trains and
+    decodes for minutes on the CPU) and counts every read."""
+    from nanopore_dna_storage_tpu.pipeline import simulate as jax_sim
+
+    argv = ["simulate-signal", *EXP_ARGS, "--data-size", "8",
+            "--num-reads", "2", "--list-size", "2", "--max-deviation", "8",
+            "--train-steps", "2", "--seed", "1"]
+    got = _printed(port_cli.main, argv + ["--device", "cpu"], capsys)
+    seen = {}
+
+    def stub(enc, exp, **kw):
+        seen.update(kw)
+        return jax_sim.SimStats(num_reads=kw["num_reads"]), None
+
+    monkeypatch.setattr(jax_sim, "simulate_and_decode_signal", stub)
+    want = _printed(jax_cli.main, argv, capsys)
+    assert list(got) == list(want)
+    assert got["num_reads"] == 2 and seen["train_steps"] == 2
+    assert 0 <= got["list_correct"] <= got["crc_pass"] <= 2
+
+
 @pytest.mark.parametrize("barcodes", [True, False])
 def test_decode_posts_matches_jax(post_dirs, tmp_path, capsys, barcodes):
     whole, windows = post_dirs
@@ -107,13 +134,16 @@ def test_decode_posts_matches_jax(post_dirs, tmp_path, capsys, barcodes):
         assert got["decoded"] == n
 
 
-@pytest.mark.parametrize("command", ["simulate", "decode-posts"])
+@pytest.mark.parametrize("command", ["simulate", "decode-posts",
+                                     "simulate-signal"])
 def test_decoding_commands_default_to_the_card(post_dirs, tmp_path,
                                                command):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; chip_smoke.py runs the CLI")
     argv = {"simulate": ["simulate", "--mem", "6", "--rate", "1",
                          "--msg-len", "40", "--num-trials", "2"],
+            "simulate-signal": ["simulate-signal", *EXP_ARGS,
+                                "--train-steps", "1"],
             "decode-posts": ["decode-posts", *EXP_ARGS, "--post-dir",
                              str(post_dirs[1]), "--outdir",
                              str(tmp_path)]}[command]

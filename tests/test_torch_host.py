@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's numpy host modules, held bit
 for bit against their originals on seeded inputs, and a check that no file
-of the port imports ``jax`` or the JAX package.
+of the port imports ``jax``, ``optax`` or the JAX package.
 
 Each test builds one config per package from the same fields (``twin``) and
 feeds both the same numpy inputs; outputs are integers or float32 arrays
@@ -194,7 +194,7 @@ def test_encode_bytes_matches(exp_id):
 
 def _forbidden(name: str) -> bool:
     return any(name == top or name.startswith(top + ".")
-               for top in ("jax", "nanopore_dna_storage_tpu"))
+               for top in ("jax", "optax", "nanopore_dna_storage_tpu"))
 
 
 def _imports(path: pathlib.Path):
@@ -208,6 +208,7 @@ def _imports(path: pathlib.Path):
 
 def test_forbidden_matches_by_name_or_dotted_prefix():
     assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("optax") and _forbidden("optax.schedules")
     assert _forbidden("nanopore_dna_storage_tpu.coding.conv")
     assert not _forbidden("jaxlib_free") and not _forbidden("numpy")
     assert not _forbidden("nanopore_dna_storage_tpu_torch.coding.conv")
@@ -215,10 +216,12 @@ def test_forbidden_matches_by_name_or_dotted_prefix():
 
 # modules of the port the guards below must reach, in every subpackage
 PORT_MODULES = ("cli.py", "coding/conv.py", "io/fast5.py", "io/lists.py",
-                "models/flipflop.py", "native/__init__.py", "ops/lva.py",
-                "ops/vocab.py", "parallel/mesh.py", "pipeline/data_prep.py",
-                "pipeline/real_data.py", "probes/expand.py",
-                "signal/barcode.py", "trellis/tables.py")
+                "models/flipflop.py", "models/train.py",
+                "native/__init__.py", "ops/lva.py", "ops/vocab.py",
+                "parallel/mesh.py", "pipeline/data_prep.py",
+                "pipeline/real_data.py", "pipeline/simulate.py",
+                "probes/expand.py", "signal/barcode.py", "trellis/tables.py",
+                "utils/profiling.py")
 
 
 def _port_files():
