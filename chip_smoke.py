@@ -142,7 +142,19 @@ Phases, each fatal on failure:
    to that test's floor, one K1 launch per block step; (c) its trained
    basecaller on experiment-7 reads, one K1 launch per block step; (d)
    ``cli simulate-signal`` in this process, printing the JAX command's
-   keys.
+   keys;
+12. the report layer (``reports/``) at experiment 7, each report through
+   the ``run`` its ``python -m`` entry point calls: (a) ``file_recovery``
+   on a 600-byte file (30 data and 9 RS oligos) from 160 reads decoded 16
+   a chunk, which must recover the file byte for byte; (b) ``read_cost``
+   on the same reads, swept every 40 reads with 3 trials a count, its
+   last count succeeding in every trial and its ``min_reads`` set; (c)
+   ``basecall_error`` at the fidelity report's widths and recipe (kmer 6,
+   Adam at 3e-3 with warm-up and cosine) for 20 steps, 8 held-out reads
+   of 120 bases, its weights saved as the JAX package's names, its edit
+   distances on the card against the CPU's on the same net; (d)
+   ``signal_fidelity`` on that cache with no training, 8 reads. (a), (b)
+   and (d) launch K1 once per forward block step.
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
@@ -168,10 +180,12 @@ times, whether the native library was built), ``{"train": {...}}``
 (phase 11: the card's loss and gradient errors against the CPU's, s/step,
 device operations, device time, idle share and peak memory of a train
 step, the losses, and each of 11b-11d's seconds, stats and K1 launches),
-the card's name and power limit, and ``{"kernels": [...]}`` (K1's entry
-adds phase 9's launches as ``parallel_launches``, phase 10's as
-``real_data_launches`` and phase 11's as ``train_launches``); the last
-is
+``{"reports": {...}}`` (phase 12: each part's seconds, s/read, K1
+launches against block steps, peak memory and record), the card's name
+and power limit, and ``{"kernels": [...]}`` (K1's entry adds phase 9's
+launches as ``parallel_launches``, phase 10's as ``real_data_launches``,
+phase 11's as ``train_launches`` and phase 12's as
+``reports_launches``); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
 """
@@ -233,6 +247,10 @@ try:
     from nanopore_dna_storage_tpu_torch.probes import (expand, lowering,
                                                        merge_roofline,
                                                        mxu_expand, treepop)
+    from nanopore_dna_storage_tpu_torch.reports import (basecall_error,
+                                                        file_recovery,
+                                                        read_cost,
+                                                        signal_fidelity)
     from nanopore_dna_storage_tpu_torch.signal.barcode import \
         levenshtein_windows
     from nanopore_dna_storage_tpu_torch.signal.channel import \
@@ -303,6 +321,22 @@ SIGNAL_CLI_ARGS = ["--bytes-per-oligo", "4", "--rs-redundancy", "0.5",
                    "--train-steps", "10"]
 SIGNAL_CLI_KEYS = ["num_reads", "crc_pass", "list_correct", "top_correct",
                    "unique_indices"]
+# phase 12: the report layer at experiment 7 on a 600-byte file (30 data
+# and 9 RS oligos), REPORT_READS reads decoded REPORT_BATCH a chunk (each
+# read's selections take ~2.1 GB on the card); the sweep every REPORT_STEP
+# reads, REPORT_TRIALS trials a count; the basecaller at the fidelity
+# report's widths and recipe for PROBE_STEPS steps, PROBE_EVAL_READS
+# held-out reads of PROBE_EVAL_LEN bases; FIDELITY_REPORT_READS reads of
+# experiment 7 through it
+REPORT_FILE_SIZE = 600
+REPORT_READS, REPORT_BATCH = 160, 16
+REPORT_STEP, REPORT_TRIALS = 40, 3
+PROBE_STEPS, PROBE_EVAL_READS, PROBE_EVAL_LEN = 20, 8, 120
+FIDELITY_REPORT_READS = 8
+# 12c: the card's held-out edit distances against the CPU's on the same
+# trained net, in bases over all reads: the same float32 network summed in
+# another order may move a Viterbi path where two scores nearly tie
+PROBE_EDIT_TOL = 0.01
 # every kernel library and its sources in csrc/
 LIBS = {"lva_acs": ["lva_acs.cu"], "lva_lse": ["lva_lse.cu"],
         "probes": ["probes.cu"], "expand": ["expand.cu"],
@@ -2876,6 +2910,135 @@ def phase_train(enc, exp, gpu: str):
     return sum(launches.values()), line
 
 
+def report_part(tag: str, fn):
+    """One part of phase 12, with the K1 count set to 0 just before it and
+    the peak memory reset: (its result, seconds, K1 launches, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lva_acs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = lva_acs.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase {tag}: {secs:.3f} s, {launches} K1 launches, peak "
+        f"{peak:.3f} GiB")
+    return out, secs, launches, peak
+
+
+def phase_reports(gpu: str):
+    """Phase 12: the report layer (``reports/``) at experiment 7 through
+    each report's ``run``, the function its ``main`` calls. (a)
+    ``file_recovery`` on a ``REPORT_FILE_SIZE``-byte file from
+    ``REPORT_READS`` reads, ``REPORT_BATCH`` a chunk, saving its state: the
+    file recovered byte for byte. (b) ``read_cost`` on the same file and
+    reads: its sweep's last count succeeding in every trial, ``min_reads``
+    set. (c) ``basecall_error`` at the fidelity report's widths and recipe
+    for ``PROBE_STEPS`` steps, saving its weights: every loss finite, the
+    saved file the net under the JAX package's names, the held-out edit
+    distances within ``PROBE_EDIT_TOL`` of the CPU's on the same net. (d)
+    ``signal_fidelity`` on that cache, with no training:
+    ``FIDELITY_REPORT_READS`` reads, every one accounted for. (a), (b) and
+    (d) launch K1 once per forward block step, (c) never. Returns the K1
+    launches of (a)-(d) and the ``reports`` line."""
+    torch.cuda.empty_cache()
+    exp = experiment(7)
+    line = {"gpu": gpu, "file_size": REPORT_FILE_SIZE}
+    total = 0
+
+    def part_log(tag):
+        return lambda msg: log(f"phase {tag}: {msg}")
+
+    def entry(tag, secs, launches, steps, peak, reads=None):
+        nonlocal total
+        if launches != steps:
+            fail(f"phase {tag}: {launches} K1 launches for {steps} block "
+                 f"steps")
+        total += launches
+        e = {"s": secs, "k1_launches": launches, "block_steps": steps,
+             "peak_gib": peak}
+        if reads:
+            e.update(reads=reads, s_per_read=secs / reads)
+        return e
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(experiment_id=7, reads=REPORT_READS, list_size=8,
+                  batch=REPORT_BATCH, max_deviation=20, seed=SEED,
+                  device="cuda")
+        (rec, steps), secs, n, peak = report_part("12a", lambda: (
+            file_recovery.run(exp, REPORT_FILE_SIZE, state=f"{tmp}/frec",
+                              log=part_log("12a"), **kw)))
+        log(f"phase 12a: {json.dumps(rec)}")
+        if not (rec["file_bytes_match"] and rec["rs_decode_ok"]
+                and rec["reads_used"] == REPORT_READS and steps > 0):
+            fail(f"phase 12a: the file was not recovered: {rec}")
+        line["12a"] = {**entry("12a", secs, n, steps, peak, REPORT_READS),
+                       "record": rec}
+
+        (rec, steps), secs, n, peak = report_part("12b", lambda: (
+            read_cost.run(exp, REPORT_FILE_SIZE, step=REPORT_STEP,
+                          num_trials=REPORT_TRIALS, state=f"{tmp}/rcost",
+                          log=part_log("12b"), **kw)))
+        log(f"phase 12b: {json.dumps(rec)}")
+        last = rec["sweep"][-1]
+        if not (last["num_reads"] == REPORT_READS
+                and last["successes"] == REPORT_TRIALS
+                and rec["min_reads_all_trials"] is not None and steps > 0):
+            fail(f"phase 12b: the sweep's last count failed a trial or no "
+                 f"count succeeded in all: {rec}")
+        line["12b"] = {**entry("12b", secs, n, steps, peak, REPORT_READS),
+                       "record": rec}
+
+        cache = f"{tmp}/fidelity_params.npz"
+        (rec, net), secs, n, peak = report_part("12c", lambda: (
+            basecall_error.run(
+                signal_fidelity.MODEL_CFG, steps=PROBE_STEPS, kmer=6,
+                batch=8, seq_len=signal_fidelity.TRAIN_SEQ_LEN,
+                lr=signal_fidelity.LEARNING_RATE, schedule=True,
+                eval_reads=PROBE_EVAL_READS, eval_len=PROBE_EVAL_LEN,
+                seed=1, device="cuda", save=cache)))
+        log(f"phase 12c: {json.dumps(rec)}")
+        if not np.isfinite(rec["final_loss"]):
+            fail(f"phase 12c: the loss is not finite: {rec}")
+        saved = signal_fidelity.load_cache(cache, "cpu")
+        for (name, p), (_, q) in zip(net.named_parameters(),
+                                     saved.named_parameters()):
+            if not torch.equal(p.cpu(), q):
+                fail(f"phase 12c: the saved {name} is not the trained one")
+        eval_kw = dict(kmer=6, eval_reads=PROBE_EVAL_READS,
+                       eval_len=PROBE_EVAL_LEN, seed=1)
+        card = sum(basecall_error.evaluate(net, **eval_kw))
+        host = sum(basecall_error.evaluate(saved, **eval_kw))
+        bases = PROBE_EVAL_READS * PROBE_EVAL_LEN
+        if abs(card - host) > PROBE_EDIT_TOL * bases:
+            fail(f"phase 12c: {card} edits on the card against {host} on "
+                 f"the CPU over {bases} bases")
+        log(f"phase 12c: edits {card} on the card, {host} on the CPU, of "
+            f"{bases} bases")
+        line["12c"] = {**entry("12c", secs, n, 0, peak),
+                       "s_per_step": secs / PROBE_STEPS,
+                       "edits_card": card, "edits_cpu": host,
+                       "record": rec}
+
+        (rec, _, stats), secs, n, peak = report_part("12d", lambda: (
+            signal_fidelity.run(
+                exp, signal_fidelity.fidelity_data(exp, 1), experiment_id=7,
+                reads=FIDELITY_REPORT_READS, train_steps=PROBE_STEPS,
+                batch=FIDELITY_REPORT_READS, seed=1,
+                params=signal_fidelity.load_cache(cache, "cuda"),
+                device="cuda")))
+        log(f"phase 12d: {json.dumps(rec)}")
+        if not (rec["num_reads"] == FIDELITY_REPORT_READS
+                and rec["num_correct"] + rec["num_erasure_CRC"]
+                + rec["num_error_CRC"] == FIDELITY_REPORT_READS
+                and stats.steps > 0):
+            fail(f"phase 12d: {rec}")
+        line["12d"] = {**entry("12d", secs, n, stats.steps, peak,
+                               FIDELITY_REPORT_READS), "record": rec}
+    return total, line
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2974,6 +3137,10 @@ def main() -> int:
     train_launches, train_line = phase_train(enc, exp, gpu)
     log(f"phase 11: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    reports_launches, reports_line = phase_reports(gpu)
+    log(f"phase 12: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs and lva_acs_lse times below: one block step at the main "
         f"path's B={B}")
@@ -2986,6 +3153,7 @@ def main() -> int:
     log(json.dumps({"parallel": parallel_line}))
     log(json.dumps({"real_data": real_line}))
     log(json.dumps({"train": train_line}))
+    log(json.dumps({"reports": reports_line}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -3003,6 +3171,9 @@ def main() -> int:
         # phase 11's decodes: simulate_and_decode_signal from an untrained
         # model, its trained net on experiment 7, cli simulate-signal
         "train_launches": train_launches,
+        # phase 12's reports: file recovery, the read-cost corpus and the
+        # signal-fidelity decode
+        "reports_launches": reports_launches,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
