@@ -8,9 +8,9 @@ Phases, each fatal on failure:
 0. setup: needs a CUDA device; builds every kernel library from
    ``nanopore_dna_storage_tpu_torch/csrc``, one nvcc per source, all at
    once (each timed, with its ptxas registers, stack and spills); fails if
-   the K-way ACS kernel's L = 8 build uses local memory (a stack frame or
-   spills) and if the logsumexp kernel's L = 8 build (its candidates in
-   registers) does;
+   the K-way ACS kernel's L = 8, 12 or 64 build (the three buckets) uses
+   local memory (a stack frame or spills) and if the logsumexp kernel's
+   L = 8 build (its candidates in registers) does;
 1. the ACS kernel (the K-way merge) against its plain PyTorch version on
    the card, at the headline decode config (experiment 7: m=11, r=5/6,
    msg_len 180, L=8, max deviation 20) on one synthetic read: buffers and
@@ -154,7 +154,19 @@ Phases, each fatal on failure:
    of 120 bases, its weights saved as the JAX package's names, its edit
    distances on the card against the CPU's on the same net; (d)
    ``signal_fidelity`` on that cache with no training, 8 reads. (a), (b)
-   and (d) launch K1 once per forward block step.
+   and (d) launch K1 once per forward block step;
+13. the paper's other list sizes (``LIST_SIZE_CELLS``): experiment 0 (m=8
+   r=1/2, msg_len 100, C = 256, L = 64: K1's L <= 64 bucket) and
+   experiment 8 (m=14 r=5/6, msg_len 181, C = 16384, L = 4), at max
+   deviation 20: for each, K1 bit-equal to its plain version on one read
+   and on a batch of forward reads of different lengths (blocks at
+   position 0, spread over the reads and at the end, one of them also
+   with every read inactive, the first block that mixes active and
+   inactive reads; every buffer row sorted), the middle block timed at
+   B=1 and at the batch's B against its bound; the batch decoded with
+   the kernel alone, its forward and its traceback timed apart; then
+   ``sim-decode`` on phase 3's file, which must recover it byte for byte
+   with one K1 launch per forward block step, its s/read and peak memory.
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
@@ -162,8 +174,8 @@ card's peak for their type (``bound``); the P1 and P8 entries have the
 launch floor beside it (``launch_floor_ms``).
 
 Before the last lines come ``{"lva_acs": {...}}`` (the ACS kernel's
-times at B=1 and B=4, its registers, local bytes and resident threads
-per SM, its bound and its share of it), ``{"lva_acs_lse": {...}}`` (the
+times at B=1 and B=4, each bucket's registers, local bytes and resident
+threads per SM, its bound and its share of it), ``{"lva_acs_lse": {...}}`` (the
 same for the logsumexp kernel, its bound's three terms and the lse path's
 s/read), ``{"roofline": {...}}``,
 ``{"lowering": {...}}`` (the launch floor, the fori rates, kernel info
@@ -181,11 +193,15 @@ times, whether the native library was built), ``{"train": {...}}``
 device operations, device time, idle share and peak memory of a train
 step, the losses, and each of 11b-11d's seconds, stats and K1 launches),
 ``{"reports": {...}}`` (phase 12: each part's seconds, s/read, K1
-launches against block steps, peak memory and record), the card's name
-and power limit, and ``{"kernels": [...]}`` (K1's entry adds phase 9's
-launches as ``parallel_launches``, phase 10's as ``real_data_launches``,
-phase 11's as ``train_launches`` and phase 12's as
-``reports_launches``); the last is
+launches against block steps, peak memory and record),
+``{"list_sizes": {...}}`` (phase 13: each cell's kernel info, K1's times,
+bounds and shares at both B, the forward and traceback seconds, and
+``sim-decode``'s seconds, s/read, launches and peak memory), the card's
+name and power limit, and ``{"kernels": [...]}`` (K1's entry adds phase
+9's launches as ``parallel_launches``, phase 10's as
+``real_data_launches``, phase 11's as ``train_launches``, phase 12's as
+``reports_launches`` and phase 13's as ``list_sizes_launches``, and each
+bucket's build as ``resources``); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
 """
@@ -241,6 +257,7 @@ try:
         Basecaller, write_fastq)
     from nanopore_dna_storage_tpu_torch.pipeline.real_data import (
         decode_posts_with_barcodes, locate_payload)
+    from nanopore_dna_storage_tpu_torch.profile_decode import Probe
     from nanopore_dna_storage_tpu_torch.pipeline.simulate import (
         signal_batch, simulate_and_decode_signal, simulate_posts,
         simulate_posts_signal, simulate_raw_reads)
@@ -360,6 +377,17 @@ TRANSPOSE_SHAPES = (((16, 128), True), ((128, 16), True), ((17, 45), True),
                     ((33, 100), True), ((1, 1), True), ((8, 64), True),
                     ((4, 4), True), ((6, 30), True), ((13, 50), True),
                     ((16, 128), False))
+# phase 13: the paper's other list sizes, each cell (experiment, list size,
+# the B timed beside B=1, sim-decode's batch and reads): experiment 0 (m=8
+# r=1/2, msg_len 100, C = 256) at L = 64, K1's L <= 64 bucket, and
+# experiment 8 (m=14 r=5/6, msg_len 181, C = 16384) at L = 4, the L <= 8
+# bucket at the largest C. Each read keeps its selections for the whole
+# decode: ~3.9 GB at the first, ~9 GB at the second, which sizes the
+# batches. The reads are the fewest that cover enough of the file's
+# oligos for RS to recover it (experiment 0: 10 data and 3 RS oligos, of
+# which 16 reads sample 8, 24 sample 11; experiment 8: 5 and 1, 16 reads
+# sample 5).
+LIST_SIZE_CELLS = ((0, 64, 4, 4, 24), (8, 4, 2, 2, 16))
 # phase 4: the tree pop's CT past launch latency: [64, 8, 32768], 128 MiB
 # of inputs
 TREEPOP_LARGE = 32768
@@ -550,8 +578,10 @@ class CheckedACS:
     combining, the operations and exp/log calls (``acs_lse_needed``) under
     logsumexp combining. ``lse`` picks the kernel."""
 
-    def __init__(self, timed: int, check=lambda t: True, lse=False):
+    def __init__(self, timed: int, check=lambda t: True, lse=False,
+                 inactive: int = -1):
         self.timed, self.check, self.lse = timed, check, lse
+        self.inactive = inactive
         self.kern, self.ref = acs_steps(lse)
         self.blocks = self.checked = self.mixed = 0
         self.err = 0.0
@@ -569,6 +599,8 @@ class CheckedACS:
             return sel
         if not self.lse:
             check_sorted(prev, f"batch block {self.blocks} prev")
+        if self.blocks == self.inactive:
+            self.check_inactive(tabs, prev, stale, rest, sel)
         st_ref = [x.clone() for x in stale]
         sel_ref = torch.empty_like(sel)
         self.ref(tabs, prev, st_ref, *rest, sel_ref)
@@ -597,6 +629,21 @@ class CheckedACS:
         self.blocks += 1
         self.checked += 1
         return sel
+
+    def check_inactive(self, tabs, prev, stale, rest, sel) -> None:
+        """This block's step with every read inactive, on copies: both
+        steps leave the stale buffers as they were and select nothing."""
+        *args, _ = rest
+        args.append(torch.zeros_like(rest[-1]))
+        outs = []
+        for step in (self.kern, self.ref):
+            st = [x.clone() for x in stale]
+            out = torch.empty_like(sel)
+            step(tabs, prev, st, *args, out)
+            same_bufs(st, stale)
+            outs.append(out)
+        if not (torch.equal(*outs) and bool((outs[0] == -1).all())):
+            fail(f"inactive block {self.blocks} selected something")
 
 
 def phase_bucket(headline, post, L=12, tag="phase 1"):
@@ -718,13 +765,13 @@ def lse_bound(dec, start1, active, needed) -> dict:
             "bound_term": by}
 
 
-def acs_resources(lse: bool = False) -> dict:
-    """The L = 8 build of the ACS kernel (the lse kernel with ``lse``) on
-    the card: registers, local bytes (stack frame and spills) and resident
-    threads per SM. Fails if it uses local memory."""
-    info = (lva_acs.lse_kernel_info if lse else lva_acs.kernel_info)(8)
+def acs_resources(lse: bool = False, L: int = 8) -> dict:
+    """The list-size ``L`` build of the ACS kernel (the lse kernel with
+    ``lse``) on the card: registers, local bytes (stack frame and spills)
+    and resident threads per SM. Fails if it uses local memory."""
+    info = (lva_acs.lse_kernel_info if lse else lva_acs.kernel_info)(L)
     if info["local_bytes"]:
-        fail(f"the {'lse ' if lse else ''}ACS kernel at L = 8 uses local "
+        fail(f"the {'lse ' if lse else ''}ACS kernel at L = {L} uses local "
              f"memory: {info}")
     return info
 
@@ -766,14 +813,15 @@ def phase_goldens(device):
     return n
 
 
-def phase_sim_decode(data: bytes, args):
-    """Phase 3: the port's ``sim-decode`` CLI in-process on ``data``.
-    Returns (its JSON record, SimStats, kernel launches, seconds)."""
+def phase_sim_decode(data: bytes, args, tag="phase 3"):
+    """Phase 3 (and 13): the port's ``sim-decode`` CLI in-process on
+    ``data``. Returns (its JSON record, SimStats, kernel launches,
+    seconds)."""
     with tempfile.TemporaryDirectory() as tmp:
         f = pathlib.Path(tmp) / "data.bin"
         f.write_bytes(data)
         argv = ["sim-decode", "-i", str(f), *args]
-        log("phase 3: cli " + " ".join(args))
+        log(f"{tag}: cli " + " ".join(args))
         torch.cuda.synchronize()
         lva_acs.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -781,11 +829,11 @@ def phase_sim_decode(data: bytes, args):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = lva_acs.LAUNCHES
-    log(f"phase 3: {wall:.3f} s for {stats.num_reads} reads = "
+    log(f"{tag}: {wall:.3f} s for {stats.num_reads} reads = "
         f"{wall / stats.num_reads:.4f} s/read; {launches} kernel launches "
         f"for {stats.steps} forward block steps")
     if not (rec["recovered"] and rec["byte_exact"]):
-        fail(f"sim-decode did not recover the file: {rec}")
+        fail(f"{tag}: sim-decode did not recover the file: {rec}")
     return rec, stats, launches, wall
 
 
@@ -2910,6 +2958,107 @@ def phase_train(enc, exp, gpu: str):
     return sum(launches.values()), line
 
 
+def list_size_cell(data: bytes, e: int, L: int, B: int, batch: int,
+                   reads: int) -> dict:
+    """One cell of phase 13, experiment ``e`` at list size ``L``: (a) K1
+    against its plain version on one simulated read, blocks at position 0,
+    spread over the read and at its end bit-equal with the rows sorted, one
+    of them also with the read made inactive, the middle block timed; (b)
+    the same on ``B`` forward reads of different lengths, the first block
+    that mixes active and inactive reads checked; (c) the decode of those
+    ``B`` reads with the kernel alone, its forward and its traceback timed
+    apart; (d) ``sim-decode`` on ``data`` from ``reads`` reads in batches
+    of ``batch``, the file recovered byte for byte with one K1 launch per
+    forward block step. Returns the cell's record."""
+    tag = f"phase 13 (experiment {e}, L={L})"
+    exp = experiment(e)
+    enc = encode_bytes(data, exp)
+    posts, rcs, _ = simulate_posts(enc.oligos, 4 * B,
+                                   np.random.default_rng(SEED))
+    fwd = [p for p, rc in zip(posts, rcs) if not rc][:B]
+    if len(fwd) < B:
+        fail(f"{tag}: {len(fwd)} forward reads for B={B}")
+    dec = LVADecoder(DecodeConfig(
+        code=ConvCodeConfig(mem=exp.conv_mem, rate=exp.conv_rate,
+                            msg_len=exp.msg_len()),
+        list_size=L, max_deviation=20), device="cuda")
+    C, W = dec.spec.code.nstate_conv, dec.spec.window
+    info = lva_acs.kernel_info(L)
+    log(f"{tag}: m={exp.conv_mem} r={exp.conv_rate} msg_len "
+        f"{exp.msg_len()} C={C} W={W} P={dec.spec.npos_pad}; nblk "
+        f"{[len(p) for p in fwd]}; kernel_info({L}) {json.dumps(info)}")
+    rec = {"experiment": e, "mem": exp.conv_mem, "rate": exp.conv_rate,
+           "msg_len": exp.msg_len(), "list_size": L, "C": C, "W": W,
+           "kernel_info": info}
+    for n in sorted({1, B}):
+        batch_posts, nblks = pack_posts(fwd[:n])
+        T = int(nblks.min())
+        blocks = {0, 1, T // 4, T // 2, 3 * T // 4, int(nblks.max()) - 1}
+        check = CheckedACS(timed=T // 2, check=blocks.__contains__,
+                           inactive=T // 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, valid = dec.decode(batch_posts, nblks, acs=check)
+        if check.checked < len(blocks) or not valid[:, 0].all() or (
+                n > 1 and check.mixed == 0):
+            fail(f"{tag}: B={n}: {check.checked} blocks checked, "
+                 f"{check.mixed} mixed, top entries valid {valid[:, 0]}")
+        start1, active = check.timed_args
+        b = acs_bound(dec, start1, active, check.needed)
+        log(f"{tag}: B={n}: {check.checked} of {check.blocks} blocks "
+            f"bit-equal, rows sorted, block {T // 4} also inactive "
+            f"({time.perf_counter() - t0:.1f} s); block {T // 2}: kernel "
+            f"{check.ms:.4f} ms, plain {check.plain_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({check.needed} "
+            f"bytes, {b['needed_ops']} ops), "
+            f"{100 * b['bound_ms'] / check.ms:.1f}% of it")
+        rec[f"B{n}"] = {"ms": check.ms, "plain_ms": check.plain_ms,
+                        "bound": b, "share_of_bound": b["bound_ms"] / check.ms,
+                        "blocks_checked": check.checked,
+                        "max_abs_err": check.err}
+
+    batch_posts, nblks = pack_posts(fwd)
+    probe = Probe(int(nblks.max()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec.decode(batch_posts, nblks, acs=probe)
+    t1 = time.perf_counter()
+    rec[f"decode_B{B}"] = {"forward_s": probe.t_fwd - t0,
+                           "traceback_s": t1 - probe.t_fwd,
+                           "traceback_share": (t1 - probe.t_fwd) / (t1 - t0)}
+    log(f"{tag}: decode of B={B}: forward {probe.t_fwd - t0:.3f} s, "
+        f"traceback and ordering {t1 - probe.t_fwd:.3f} s")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim, stats, launches, wall = phase_sim_decode(data, [
+        "--experiment", str(e), "--list-size", str(L), "--num-reads",
+        str(reads), "--batch", str(batch), "--seed", str(SEED),
+        "--device", "cuda"], tag=tag)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches == 0 or launches != stats.steps:
+        fail(f"{tag}: {launches} K1 launches for {stats.steps} block steps")
+    log(f"{tag}: sim-decode peak device memory {peak:.2f} GiB")
+    rec["sim_decode"] = {"reads": stats.num_reads, "batch": batch, "s": wall,
+                         "s_per_read": wall / stats.num_reads,
+                         "k1_launches": launches, "block_steps": stats.steps,
+                         "peak_gib": peak, "record": sim}
+    return rec
+
+
+def phase_list_sizes(data: bytes, gpu: str):
+    """Phase 13: the paper's other list sizes, ``LIST_SIZE_CELLS`` through
+    ``list_size_cell`` on the 100-byte file, with the K1 count set to 0
+    just before each cell's sim-decode. Returns the K1 launches of the
+    sim-decodes by cell and the ``list_sizes`` line."""
+    torch.cuda.empty_cache()
+    line = {"gpu": gpu}
+    for e, L, B, batch, reads in LIST_SIZE_CELLS:
+        line[f"exp{e}_L{L}"] = list_size_cell(data, e, L, B, batch, reads)
+    return {k: v["sim_decode"]["k1_launches"] for k, v in line.items()
+            if k != "gpu"}, line
+
+
 def report_part(tag: str, fn):
     """One part of phase 12, with the K1 count set to 0 just before it and
     the peak memory reset: (its result, seconds, K1 launches, peak GiB)."""
@@ -3050,8 +3199,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_kernels()
-    resources = acs_resources()
-    log(f"phase 0: ACS kernel at L = 8: {json.dumps(resources)}")
+    resources = {f"L{L}": acs_resources(L=L) for L in (8, 12, 64)}
+    for k, v in resources.items():
+        log(f"phase 0: ACS kernel at {k}: {json.dumps(v)}")
     lse_resources = acs_resources(lse=True)
     log(f"phase 0: lse ACS kernel at L = 8: {json.dumps(lse_resources)}")
     log(f"phase 0: done in {time.perf_counter() - t0:.1f} s")
@@ -3081,7 +3231,7 @@ def main() -> int:
         f"with every slot): {acs['bound_ms']:.4f} ms, by {acs['bound_by']}")
     err = max(err, err_b)
     lva_line = {
-        "gpu": gpu, "ms_B1": acs_ms, f"ms_B{B}": ms, "L8": resources,
+        "gpu": gpu, "ms_B1": acs_ms, f"ms_B{B}": ms, **resources,
         f"bound_B{B}": acs, "share_of_bound": acs["bound_ms"] / ms,
         "share_of_bytes_every_slot": acs["bytes_every_slot_ms"] / ms}
 
@@ -3141,6 +3291,10 @@ def main() -> int:
     reports_launches, reports_line = phase_reports(gpu)
     log(f"phase 12: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    list_launches, list_line = phase_list_sizes(data, gpu)
+    log(f"phase 13: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs and lva_acs_lse times below: one block step at the main "
         f"path's B={B}")
@@ -3154,6 +3308,7 @@ def main() -> int:
     log(json.dumps({"real_data": real_line}))
     log(json.dumps({"train": train_line}))
     log(json.dumps({"reports": reports_line}))
+    log(json.dumps({"list_sizes": list_line}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -3174,6 +3329,10 @@ def main() -> int:
         # phase 12's reports: file recovery, the read-cost corpus and the
         # signal-fidelity decode
         "reports_launches": reports_launches,
+        # phase 13's sim-decodes at experiments 0 (L = 64) and 8 (L = 4)
+        "list_sizes_launches": list_launches,
+        # the build of each bucket: registers, local bytes, threads per SM
+        "resources": resources,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -51,11 +51,35 @@
 // 7 blocks of 128 threads (896) per SM, which __launch_bounds__ pins: the
 // loads' latency is hidden by residency. The row table (each row's offset
 // and transition score) is the same for a whole block and sits in shared
-// memory. The 16 and 64 buckets keep their emitted pairs in local memory;
-// they only need to be exact (chip_smoke.py holds the 16 bucket at L = 12,
-// the goldens the 64 bucket at L = 34 and 64). The TPU layout tricks (bit-reversed lanes,
-// roll butterfly, MXU one-hot expansion, tournament merge) are not needed:
-// Hopper has native gathers and uint32.
+// memory. The TPU layout tricks (bit-reversed lanes, roll butterfly, MXU
+// one-hot expansion, tournament merge) are not needed: Hopper has native
+// gathers and uint32.
+//
+// The large lists (the L <= 16 and L <= 64 buckets; the paper's m=8
+// experiments decode at L = 64). One thread a destination cannot keep 64
+// emitted pairs in registers, and in local memory (the earlier form) each
+// pop read back every pair before it: about 2,016 pair reads a destination
+// a step, 2.9 ms at m=8 L=64 B=4 against a 0.111 ms bound (PERF.md). So
+// lva_acs_lanes_kernel gives each destination kLanes = 4 adjacent lanes of
+// a warp. Lane l holds merge rows l and l + 4 (each row's head and the slot
+// after it, loaded ahead) and a share of the emitted pairs: pair r lives in
+// lane r % 4's registers, newest first, L / 4 a lane. A pop takes each
+// lane's best row, then shuffle steps on (score, row) across the lanes, the
+// lower row winning a tie as the scan's strict > over ascending rows does
+// (a flop's 2 rows take one step and a broadcast); the winner's hashes and
+// slot come by one shuffle each; every lane checks the pair against its
+// own share and a ballot over the group decides; only the popped row's
+// lane loads its next slot. The groups of a warp run their pops in one
+// loop until every group is done. Each round's output goes to shared
+// memory as [L, 32 conv states] a block and is written as whole rows at the
+// end, so the stores coalesce as the L <= 8 bucket's per-round stores do.
+// With 8 lanes a destination (one row each) the L = 64 step took 1.50-1.56
+// ms at B=4, with 2 (four rows each) 1.78 ms, with 4 1.31 ms (PERF.md). As
+// read from the code, a pop issues a warp about the same instructions
+// whatever the lanes, so fewer lanes serve more destinations a pop, until
+// the registers for the pairs (2 x L / kLanes a lane) cut the threads an SM
+// holds; without profiler counters that is the best account of why the
+// step takes about 12 times the 0.111 ms its bytes need at B=4.
 //
 // Exactness: each score is one f32 add, prev + transition, in that order;
 // nothing else touches scores, and the build passes --fmad=false. Hashes
@@ -75,6 +99,16 @@ constexpr int kBlock = 128;
 // at least 7 blocks of kBlock resident per SM, so at most 72 registers a
 // thread
 constexpr int kMinBlocks = 7;
+// the large-list buckets: kLanes lanes a destination, kRows merge rows a
+// lane (row q in lane q % kLanes), kTile destinations (conv states) a block
+constexpr int kLanes = 4;
+constexpr int kRows = kNq / kLanes;
+constexpr int kTile = 32;
+constexpr int kLaneBlock = kTile * kLanes;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kGroup = (1u << kLanes) - 1;  // a destination's lanes
+// an emitted-pair slot not filled yet: no hash reaches it (both < 2^30)
+constexpr uint32_t kNoPair = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t hash_update(uint32_t h, int shift,
                                                 uint32_t nb, uint32_t p) {
@@ -83,6 +117,30 @@ __device__ __forceinline__ uint32_t hash_update(uint32_t h, int shift,
   t = t >= p ? t - p : t;
   t = t >= p ? t - p : t;
   return t;
+}
+
+// The row table of a block's (read b, window row, CRF destination f), into
+// shared memory: row q's offset in the plane of position pos - 1 (less the
+// conv state) and its transition score, the stay row lying in the next
+// plane, at position pos; and the number of rows (2 for a flop, 8 for a
+// flip). The caller synchronises the block after it.
+__device__ __forceinline__ void row_table(
+    const float* __restrict__ stay_tr, const float* __restrict__ move_tr,
+    const int32_t* __restrict__ qmap, int b, int f, size_t LC,
+    uint32_t* row_base, float* row_tr, int& row_count) {
+  for (int q = threadIdx.x; q < kNq; q += blockDim.x) {
+    const int g = q == 0 ? f : qmap[f * kNq + q];
+    row_base[q] = static_cast<uint32_t>((q == 0 ? kNcrf + f : g < 0 ? 0 : g) *
+                                        LC);
+    row_tr[q] = q == 0 ? stay_tr[b * kNcrf + f]
+                : g < 0 ? 0.0f
+                        : move_tr[(b * kNcrf + f) * kNcrf + g];
+  }
+  if (threadIdx.x == 0) {
+    int n = 1;
+    while (n < kNq && qmap[f * kNq + n] >= 0) ++n;
+    row_count = n;
+  }
 }
 
 // One head of a candidate row: the score of slot `at` of the previous buffer
@@ -100,11 +158,11 @@ __device__ __forceinline__ void load_head(
   }
 }
 
-// The merge of one thread's nq <= NQ candidate rows into its L output
-// slots: row q reads the plane of position pos - 1 from row_base[q] + (q ==
-// 0 ? s : pred) (the stay row's base points into the next plane), and
-// adds row_tr[q]. NQ is 8 for a flip destination and 2 for a flop, so the
-// heads of a flop take no registers and no compares for rows it lacks.
+// The merge of one thread's nq <= NQ candidate rows into its L <= LB = 8
+// output slots: row q reads the plane of position pos - 1 from row_base[q]
+// + (q == 0 ? s : pred) (the stay row's base points into the next plane),
+// and adds row_tr[q]. NQ is 8 for a flip destination and 2 for a flop, so
+// the heads of a flop take no registers and no compares for rows it lacks.
 template <int NQ, int LB, typename SelT>
 __device__ __forceinline__ void merge(
     const float* __restrict__ q_sc, const uint32_t* __restrict__ q_h1,
@@ -128,12 +186,11 @@ __device__ __forceinline__ void merge(
   }
 
   // the emitted pairs, against which each popped head is checked; the
-  // loops over rounds and emitted pairs unroll fully at the register bucket
-  // and run at run time in the larger ones. Each round ends with every
-  // thread of a warp on the same slot, so its stores stay coalesced.
+  // loops over rounds and emitted pairs unroll fully. Each round ends with
+  // every thread of a warp on the same slot, so its stores stay coalesced.
   uint32_t o1[LB], o2[LB];
   bool left = true;  // some head is finite
-#pragma unroll (LB <= 8 ? LB : 1)
+#pragma unroll
   for (int r = 0; r < LB; ++r) {
     if (r >= L) continue;
     float best = -INFINITY;
@@ -167,8 +224,8 @@ __device__ __forceinline__ void merge(
                   row_tr[bq], bq != 0, shift, nb, xs, xa, xb);
       // a pair already emitted is dropped
       bool dup = false;
-#pragma unroll (LB <= 8 ? LB : 1)
-      for (int e = 0; e < (LB <= 8 ? LB : r); ++e) {
+#pragma unroll
+      for (int e = 0; e < LB; ++e) {
         if (e < r) dup |= o1[e] == ta && o2[e] == tb;
       }
 #pragma unroll
@@ -213,25 +270,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) lva_acs_kernel(
   const size_t sC = static_cast<size_t>(C);
   const size_t LC = static_cast<size_t>(L) * sC;
 
-  // the row table of this block's (read, window row, f): row q's offset in
-  // the plane of position pos - 1 (less the conv state) and its transition
-  // score; the stay row lies in the next plane, at position pos
   __shared__ uint32_t row_base[kNq];
   __shared__ float row_tr[kNq];
   __shared__ int row_count;
-  for (int q = threadIdx.x; q < kNq; q += blockDim.x) {
-    const int g = q == 0 ? f : qmap[f * kNq + q];
-    row_base[q] = static_cast<uint32_t>((q == 0 ? kNcrf + f : g < 0 ? 0 : g) *
-                                        LC);
-    row_tr[q] = q == 0 ? stay_tr[b * kNcrf + f]
-                : g < 0 ? 0.0f
-                        : move_tr[(b * kNcrf + f) * kNcrf + g];
-  }
-  if (threadIdx.x == 0) {
-    int n = 1;
-    while (n < kNq && qmap[f * kNq + n] >= 0) ++n;
-    row_count = n;
-  }
+  row_table(stay_tr, move_tr, qmap, b, f, LC, row_base, row_tr, row_count);
   __syncthreads();
 
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
@@ -287,6 +329,259 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) lva_acs_kernel(
                          L, C, sel_shift);
 }
 
+// (score, row) of a destination's best head over its kLanes lanes, from
+// each lane's best: the higher score, the lower row on a tie. The NQ rows
+// lie in lanes 0..min(NQ, kLanes)-1 (the rows past NQ hold -inf); with NQ <
+// kLanes lane 0's result is broadcast.
+template <int NQ>
+__device__ __forceinline__ void group_best(float& v, int& k) {
+  constexpr int span = NQ < kLanes ? NQ : kLanes;
+#pragma unroll
+  for (int off = 1; off < span; off <<= 1) {
+    const float v2 = __shfl_xor_sync(kFull, v, off, kLanes);
+    const int k2 = __shfl_xor_sync(kFull, k, off, kLanes);
+    if (v2 > v || (v2 == v && k2 < k)) {
+      v = v2;
+      k = k2;
+    }
+  }
+  if (NQ < kLanes) {
+    v = __shfl_sync(kFull, v, 0, kLanes);
+    k = __shfl_sync(kFull, k, 0, kLanes);
+  }
+}
+
+// The merge of one destination over its kLanes lanes; this is lane l of
+// the destination at tile column t, and its row i is merge row q = i *
+// kLanes + l (`has`: the row exists, slot 0 at `at` in the plane of
+// position pos - 1, transition `tr`). Writes the emitted rounds into the
+// block's staging arrays and their count into st_n[t] (-1 for a
+// destination that is not live). Every lane of the warp calls it.
+template <int NQ, int LB, typename SelT>
+__device__ __forceinline__ void merge_lanes(
+    const float* __restrict__ q_sc, const uint32_t* __restrict__ q_h1,
+    const uint32_t* __restrict__ q_h2, const uint32_t (&at)[kRows],
+    const float (&tr)[kRows], const bool (&has)[kRows], int shift,
+    uint32_t nb, bool live, int l, int t, int L, int C, int sel_shift,
+    float (*st_sc)[kTile], uint32_t (*st_h1)[kTile],
+    uint32_t (*st_h2)[kTile], SelT (*st_sel)[kTile], int* st_n) {
+  constexpr int K = LB / kLanes;  // emitted pairs a lane holds
+  const unsigned group = kGroup << ((threadIdx.x & 31) & ~(kLanes - 1));
+  // each row's head (slot j) and the slot after it, -inf past the end
+  float hs[kRows], ns[kRows];
+  uint32_t ha[kRows], hb[kRows], na[kRows], nb2[kRows];
+  int j[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    hs[i] = ns[i] = -INFINITY;
+    ha[i] = hb[i] = na[i] = nb2[i] = 0;
+    j[i] = 0;
+    const bool move = i * kLanes + l != 0;
+    if (live && has[i]) {
+      load_head(q_sc, q_h1, q_h2, at[i], tr[i], move, shift, nb, hs[i], ha[i],
+                hb[i]);
+      if (L > 1)
+        load_head(q_sc, q_h1, q_h2, at[i] + C, tr[i], move, shift, nb, ns[i],
+                  na[i], nb2[i]);
+    }
+  }
+  // this lane's share of the emitted pairs, newest first
+  uint32_t p1[K], p2[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) p1[k] = p2[k] = kNoPair;
+  int r = 0;  // rounds emitted
+  bool done = !live;
+  while (__any_sync(kFull, !done)) {
+    // the lane's best row (rows in ascending q), then the group's
+    float top = hs[0];
+    int bq = l;
+#pragma unroll
+    for (int i = 1; i < kRows; ++i) {
+      if (hs[i] > top) {
+        top = hs[i];
+        bq = i * kLanes + l;
+      }
+    }
+    group_best<NQ>(top, bq);
+    const int bl = bq % kLanes, bi = bq / kLanes;
+    uint32_t xa = ha[0], xb = hb[0];
+    int xj = j[0];
+#pragma unroll
+    for (int i = 1; i < kRows; ++i) {
+      if (i == bi) {
+        xa = ha[i];
+        xb = hb[i];
+        xj = j[i];
+      }
+    }
+    const uint32_t ta = __shfl_sync(kFull, xa, bl, kLanes);
+    const uint32_t tb = __shfl_sync(kFull, xb, bl, kLanes);
+    const int tj = __shfl_sync(kFull, xj, bl, kLanes);
+    const bool go = !done && top > -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (go && l == bl && i == bi) {  // advance the popped row
+        hs[i] = ns[i];
+        ha[i] = na[i];
+        hb[i] = nb2[i];
+        ++j[i];
+        ns[i] = -INFINITY;
+        na[i] = nb2[i] = 0;
+        if (j[i] + 1 < L)
+          load_head(q_sc, q_h1, q_h2, at[i] + (j[i] + 1) * C, tr[i], bq != 0,
+                    shift, nb, ns[i], na[i], nb2[i]);
+      }
+    }
+    // a pair already emitted is dropped
+    bool seen = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) seen |= p1[k] == ta && p2[k] == tb;
+    const bool dup = (__ballot_sync(kFull, seen) & group) != 0;
+    if (go && !dup) {
+      if (l == 0) {
+        st_sc[r][t] = top;
+        st_h1[r][t] = ta;
+        st_h2[r][t] = tb;
+        st_sel[r][t] = SelT(bq * sel_shift + tj);
+      }
+      if (l == (r & (kLanes - 1))) {
+#pragma unroll
+        for (int k = K - 1; k > 0; --k) {
+          p1[k] = p1[k - 1];
+          p2[k] = p2[k - 1];
+        }
+        p1[0] = ta;
+        p2[0] = tb;
+      }
+      ++r;
+    }
+    done = done || !go || r >= L;
+  }
+  if (l == 0) st_n[t] = live ? r : -1;
+}
+
+// The L <= LB bucket for LB = 16 and 64: kLanes lanes a destination, a
+// block of kLaneBlock threads on kTile neighbouring conv states of one
+// (read, window row, f). Arguments as lva_acs_kernel's.
+template <int LB, typename SelT>
+__global__ void __launch_bounds__(kLaneBlock) lva_acs_lanes_kernel(
+    const float* __restrict__ p_sc, const uint32_t* __restrict__ p_h1,
+    const uint32_t* __restrict__ p_h2, float* __restrict__ s_sc,
+    uint32_t* __restrict__ s_h1, uint32_t* __restrict__ s_h2,
+    void* __restrict__ sel_out, const float* __restrict__ stay_tr,
+    const float* __restrict__ move_tr, const int32_t* __restrict__ start1,
+    const uint8_t* __restrict__ active, const int32_t* __restrict__ cstar,
+    const int32_t* __restrict__ nbits, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ pattern, const int32_t* __restrict__ qmap,
+    int P, int L, int C, int W, int sel_shift) {
+  const int w = blockIdx.y / kNcrf;
+  const int f = blockIdx.y % kNcrf;
+  const int b = blockIdx.z;
+  const size_t sC = static_cast<size_t>(C);
+  const size_t LC = static_cast<size_t>(L) * sC;
+
+  __shared__ uint32_t row_base[kNq];
+  __shared__ float row_tr[kNq];
+  __shared__ int row_count;
+  // the emitted rounds of the block's kTile destinations, and their counts
+  __shared__ float st_sc[LB][kTile];
+  __shared__ uint32_t st_h1[LB][kTile], st_h2[LB][kTile];
+  __shared__ SelT st_sel[LB][kTile];
+  __shared__ int st_n[kTile];
+  row_table(stay_tr, move_tr, qmap, b, f, LC, row_base, row_tr, row_count);
+  __syncthreads();
+
+  const int s0 = blockIdx.x * kTile;
+  const int pos = start1[b] + w;
+  SelT* out_sel = static_cast<SelT*>(sel_out) +
+                  ((static_cast<size_t>(b) * W + w) * kNcrf + f) * LC + s0;
+  // slot 0 of conv state s0 of this row in the prev and the stale buffer
+  const size_t row =
+      ((static_cast<size_t>(b) * P + pos) * kNcrf + f) * LC + s0;
+  const int cols = C - s0 < kTile ? C - s0 : kTile;
+  // each loop below walks the tile's L x cols outputs as whole rows (slot
+  // j, column x). An inactive read writes -1 selections and leaves the
+  // stale buffer alone
+  if (!active[b]) {
+    for (int i = threadIdx.x; i < L * kTile; i += kLaneBlock) {
+      const int j = i / kTile, x = i % kTile;
+      if (x < cols) out_sel[j * sC + x] = SelT(-1);
+    }
+    return;
+  }
+  // trellis position 0 (padded row 1) is stay-only: slot 0 takes the stay
+  // score, the other slots -inf, hashes pass through and the code is the slot
+  if (pos == 1) {
+    for (int i = threadIdx.x; i < L * kTile; i += kLaneBlock) {
+      const int j = i / kTile, x = i % kTile;
+      if (x >= cols) continue;
+      const size_t o = j * sC + x;
+      if (!valid[static_cast<size_t>(pos) * sC + s0 + x]) {
+        out_sel[o] = SelT(-1);
+        continue;
+      }
+      s_sc[row + o] = j == 0 ? p_sc[row + x] + row_tr[0] : -INFINITY;
+      s_h1[row + o] = p_h1[row + o];
+      s_h2[row + o] = p_h2[row + o];
+      out_sel[o] = SelT(j);
+    }
+    return;
+  }
+
+  const int l = threadIdx.x % kLanes;  // this lane of its destination
+  const int t = threadIdx.x / kLanes;  // its destination's tile column
+  const int s = s0 + t;
+  const bool live = t < cols && valid[static_cast<size_t>(pos) * sC + s];
+  const int pat = pattern[pos];
+  const int kvar = pat != 0;
+  const int shift = 1 + kvar;
+  const uint32_t nb = live ? static_cast<uint32_t>(nbits[kvar * C + s]) : 0;
+  const int c = live ? cstar[(pat * 4 + (f & 3)) * C + s] : -1;
+  const uint32_t pred = static_cast<uint32_t>(((s << shift) + c) & (C - 1));
+  const size_t plane =
+      (static_cast<size_t>(b) * P + (pos - 1)) * kNcrf * LC;
+  const int nq = row_count;
+  uint32_t at[kRows];
+  float tr[kRows];
+  bool has[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int q = i * kLanes + l;
+    has[i] = q < nq && (q == 0 || c >= 0);
+    at[i] = row_base[q] + (q == 0 ? s : pred);
+    tr[i] = row_tr[q];
+  }
+  // every thread of a block has the same f, so the branch is uniform
+  if (nq == 2)
+    merge_lanes<2, LB, SelT>(p_sc + plane, p_h1 + plane, p_h2 + plane, at, tr,
+                             has, shift, nb, live, l, t, L, C, sel_shift,
+                             st_sc, st_h1, st_h2, st_sel, st_n);
+  else
+    merge_lanes<kNq, LB, SelT>(p_sc + plane, p_h1 + plane, p_h2 + plane, at,
+                               tr, has, shift, nb, live, l, t, L, C,
+                               sel_shift, st_sc, st_h1, st_h2, st_sel, st_n);
+  __syncthreads();
+
+  // the staged rounds as whole rows; slots past a destination's count are
+  // (-inf, 0, 0, -1), and a state that is not live selects -1 and leaves
+  // the stale buffer alone
+  for (int i = threadIdx.x; i < L * kTile; i += kLaneBlock) {
+    const int j = i / kTile, x = i % kTile;
+    if (x >= cols) continue;
+    const size_t o = j * sC + x;
+    const int n = st_n[x];
+    if (n < 0) {
+      out_sel[o] = SelT(-1);
+      continue;
+    }
+    const bool hit = j < n;
+    s_sc[row + o] = hit ? st_sc[j][x] : -INFINITY;
+    s_h1[row + o] = hit ? st_h1[j][x] : 0u;
+    s_h2[row + o] = hit ? st_h2[j][x] : 0u;
+    out_sel[o] = hit ? st_sel[j][x] : SelT(-1);
+  }
+}
+
 using KernelFn = void (*)(const float*, const uint32_t*, const uint32_t*,
                           float*, uint32_t*, uint32_t*, void*, const float*,
                           const float*, const int32_t*, const uint8_t*,
@@ -295,12 +590,14 @@ using KernelFn = void (*)(const float*, const uint32_t*, const uint32_t*,
                           int);
 
 // The kernel of one list-size bucket: 8 and 16 with int8 selections, 64
-// with int16.
+// with int16; and its threads a block.
 KernelFn bucket(int L) {
   return L <= 8    ? &lva_acs_kernel<8, int8_t>
-         : L <= 16 ? &lva_acs_kernel<16, int8_t>
-                   : &lva_acs_kernel<64, int16_t>;
+         : L <= 16 ? &lva_acs_lanes_kernel<16, int8_t>
+                   : &lva_acs_lanes_kernel<64, int16_t>;
 }
+
+int bucket_threads(int L) { return L <= 8 ? kBlock : kLaneBlock; }
 
 }  // namespace
 
@@ -319,8 +616,11 @@ extern "C" int lva_acs_launch(
     void* stream) {
   if (L < 1 || L > 64 || C < 1 || B < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = C < kBlock ? C : kBlock;
-  const dim3 grid((C + threads - 1) / threads, W * kNcrf, B);
+  // the register bucket: one thread a destination; the lane buckets:
+  // kLanes threads a destination, kTile destinations a block
+  const int threads = L > 8 ? kLaneBlock : C < kBlock ? C : kBlock;
+  const int per_block = L > 8 ? kTile : threads;
+  const dim3 grid((C + per_block - 1) / per_block, W * kNcrf, B);
   bucket(L)<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p_sc), static_cast<const uint32_t*>(p_h1),
       static_cast<const uint32_t*>(p_h2), static_cast<float*>(s_sc),
@@ -334,19 +634,20 @@ extern "C" int lva_acs_launch(
 }
 
 // The registers, local memory (stack and spills, bytes) and resident threads
-// per SM (the occupancy calculator, blocks of 128) of the kernel that runs
-// list size L, into out[0..2].
+// per SM (the occupancy calculator, at the bucket's block size) of the kernel
+// that runs list size L, into out[0..2].
 extern "C" int lva_acs_info(int L, int* out) {
   if (L < 1 || L > 64) return static_cast<int>(cudaErrorInvalidValue);
   const KernelFn k = bucket(L);
+  const int threads = bucket_threads(L);
   cudaFuncAttributes at{};
   cudaError_t e = cudaFuncGetAttributes(&at, k);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kBlock, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, 0);
   out[0] = at.numRegs;
   out[1] = static_cast<int>(at.localSizeBytes);
-  out[2] = blocks * kBlock;
+  out[2] = blocks * threads;
   return static_cast<int>(e);
 }
 

@@ -7,7 +7,9 @@ over reads and in natural conv indexing. Two merges, one per
 same function in plain PyTorch on CPU tensors:
 
 * max combining: ``acs_block`` launches ``csrc/lva_acs.cu``, a K-way merge
-  of the sorted candidate rows; ``acs_block_ref`` is its plain version. The
+  of the sorted candidate rows (one thread a destination at L <= 8, eight
+  lanes of a warp a destination above); ``acs_block_ref`` is its plain
+  version. The
   K-way merge has a precondition: every row of ``prev`` is non-increasing
   in slot. Every buffer of a max decode holds it.
 * logsumexp combining (the Pallas kernel's branch at
@@ -343,9 +345,9 @@ def _info(kind: str, L: int) -> Dict[str, int]:
 
 def kernel_info(L: int) -> Dict[str, int]:
     """Registers, local memory in bytes (stack frame and spills) and
-    resident threads per SM (the occupancy calculator, blocks of 128) of
-    the K-way kernel that runs list size ``L`` on the current CUDA
-    device."""
+    resident threads per SM (the occupancy calculator, at the bucket's
+    block: 128 threads at L <= 8, 256 in the lane buckets above) of the
+    K-way kernel that runs list size ``L`` on the current CUDA device."""
     return _info("lva_acs", L)
 
 

@@ -1,9 +1,17 @@
-"""Where a decode's time goes on one CUDA device, at the headline config.
+"""Where a decode's time goes on one CUDA device, at one published
+experiment.
 
     python -m nanopore_dna_storage_tpu_torch.profile_decode [--reads 24]
+        [--experiment 7] [--list-size L] [--batches 1,2,4,8]
 
-Simulates reads of experiment 7 (m=11, r=5/6, msg_len 180, L=8, max
-deviation 20) from ``--seed`` and prints:
+Simulates reads of ``--experiment`` (default 7, the headline config: m=11,
+r=5/6, msg_len 180) from ``--seed`` on a 100-byte file and decodes them at
+max deviation 20 and ``--list-size`` (default the experiment's published
+list size, ``DEFAULT_LIST_SIZE``: 64 at m=8, 8 at m=11, 4 at m=14). Every
+read keeps its selections on the card for the whole decode (about 3.9 GB
+a read at m=8 L=64, 9 GB at m=14 L=4), so ``--batches`` is sized to the
+card's memory there (``1,4`` at experiment 0, ``1,2`` at experiment 8). It
+prints:
 
 1. forward versus the rest of a decode (traceback, final ordering, the copy
    to the host): for each B of ``--batches``, two decodes of the first B
@@ -32,6 +40,7 @@ from .io.post import pack_posts
 from .ops.lva import LVADecoder
 from .ops.lva_acs import acs_block
 from .pipeline import encode_bytes, experiment
+from .pipeline.experiments import DEFAULT_LIST_SIZE
 from .pipeline.decode import PipelineDecoder
 from .pipeline.simulate import simulate_posts
 
@@ -81,6 +90,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", default="1,2,4,8")
     ap.add_argument("--launches", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--experiment", type=int, default=7)
+    ap.add_argument("--list-size", type=int, default=None,
+                    help="default: the experiment's published list size")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -91,7 +103,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    exp = experiment(7)
+    exp = experiment(args.experiment)
+    L = args.list_size or DEFAULT_LIST_SIZE[exp.conv_mem]
     data = np.random.default_rng(args.seed).integers(
         0, 256, 100, dtype=np.uint8).tobytes()
     enc = encode_bytes(data, exp)
@@ -104,8 +117,10 @@ def main(argv=None) -> int:
     dec = LVADecoder(DecodeConfig(
         code=ConvCodeConfig(mem=exp.conv_mem, rate=exp.conv_rate,
                             msg_len=exp.msg_len()),
-        list_size=8, max_deviation=20), device="cuda")
-    print(f"forward reads {len(fwd)}: nblk {[len(p) for p in fwd]}")
+        list_size=L, max_deviation=20), device="cuda")
+    print(f"experiment {args.experiment}: m={exp.conv_mem} r={exp.conv_rate} "
+          f"L={L} C={dec.spec.code.nstate_conv} W={dec.spec.window}; "
+          f"forward reads {len(fwd)}: nblk {[len(p) for p in fwd]}")
 
     def decode(B, probe_args=()):
         batch, nblks = pack_posts(fwd[:B])
@@ -132,7 +147,7 @@ def main(argv=None) -> int:
                   f"{probe.timed}")
 
     B = max(batches)
-    pdec = PipelineDecoder(exp, 8, 20, device="cuda")
+    pdec = PipelineDecoder(exp, L, 20, device="cuda")
     num_oligos = enc.num_oligos_data + enc.num_oligos_rs
     pdec.decode_posts(posts[:B], rcs[:B], num_oligos)
     with profile(activities=[ProfilerActivity.CPU,
