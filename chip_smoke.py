@@ -80,7 +80,8 @@ Phases, each fatal on failure:
    kernel bit-equal to its plain version on one read at B=1 (blocks over
    the read, position 0 and an inactive block, then the whole read's lists,
    scores and validity), at L = 3 and 5 (the L <= 8 bucket, its slots past
-   L the constant -inf) and 12 on a few blocks, and on every 16th block
+   L the constant -inf) and 12 on a few blocks, the L <= 16 bucket at L =
+   12 timed at B=1 and B=4 against its bound, and on every 16th block
    of phase 3's first batch at B=4, one block timed there; then phase 3's
    32 reads through ``PipelineDecoder(..., path_combine="logsumexp")``,
    which must recover the file byte for byte with one lse launch per block
@@ -166,7 +167,18 @@ Phases, each fatal on failure:
    B=1 and at the batch's B against its bound; the batch decoded with
    the kernel alone, its forward and its traceback timed apart; then
    ``sim-decode`` on phase 3's file, which must recover it byte for byte
-   with one K1 launch per forward block step, its s/read and peak memory.
+   with one K1 launch per forward block step, its s/read and peak memory;
+14. the decode benchmark (``bench.py``, the counterpart of the root
+   ``bench.py``) in this process on each of ``BENCH_RUNS`` (the smoke
+   config, m11 on one batch of 16 reads and m14best, experiment 2: m=14
+   r=1/2 msg_len 100 L=4, on one of 4) with ``--verify``: its one JSON
+   line with a rate above 0 and ``lists_match`` true, that is the config's
+   goldens identical to the reference binary's lists and, on the timed
+   loop's first whole batch decoded again, every k-th block step and the
+   first that mixes active and inactive reads bit-equal to the plain
+   version, every row sorted, every read's lists those the timed loop
+   gave; one K1 launch per forward block step of its warm-up and timed
+   loop.
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
@@ -196,11 +208,14 @@ step, the losses, and each of 11b-11d's seconds, stats and K1 launches),
 launches against block steps, peak memory and record),
 ``{"list_sizes": {...}}`` (phase 13: each cell's kernel info, K1's times,
 bounds and shares at both B, the forward and traceback seconds, and
-``sim-decode``'s seconds, s/read, launches and peak memory), the card's
+``sim-decode``'s seconds, s/read, launches and peak memory),
+``{"bench": {...}}`` (phase 14: each run's JSON line, seconds and K1
+launches), the card's
 name and power limit, and ``{"kernels": [...]}`` (K1's entry adds phase
 9's launches as ``parallel_launches``, phase 10's as
 ``real_data_launches``, phase 11's as ``train_launches``, phase 12's as
-``reports_launches`` and phase 13's as ``list_sizes_launches``, and each
+``reports_launches``, phase 13's as ``list_sizes_launches`` and phase
+14's timed runs' as ``bench_launches``, and each
 bucket's build as ``resources``); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or away from the
 package, the script exits non-zero and prints no result.
@@ -209,6 +224,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -223,7 +239,7 @@ import numpy as np
 import torch
 
 try:
-    from nanopore_dna_storage_tpu_torch import cli
+    from nanopore_dna_storage_tpu_torch import bench, cli
     from nanopore_dna_storage_tpu_torch.coding.framing import (
         check_and_extract, frame_oligos)
     from nanopore_dna_storage_tpu_torch.config import (ConvCodeConfig,
@@ -287,8 +303,10 @@ LSE = "logsumexp"
 # full width takes ~0.1-0.3 s a block step
 LSE_CHECK_EVERY = 16
 # phase 7b: the lse kernel's L <= 8 bucket below its full list size, and
-# its flat L <= 16 bucket
+# its flat L <= 16 bucket; that bucket timed at L = LSE_FLAT_L on one read
+# and on LSE_FLAT_B reads
 LSE_LIST_SIZES = (3, 5, 12)
+LSE_FLAT_L, LSE_FLAT_B = 12, 4
 # phase 8: reads of experiment 7 through the basecaller chain at the
 # published widths, decoded in batches as phase 3 decodes (each read's
 # selections take ~2.7 GB at ~520 blocks)
@@ -361,9 +379,9 @@ LIBS = {"lva_acs": ["lva_acs.cu"], "lva_lse": ["lva_lse.cu"],
 CSRC = "nanopore_dna_storage_tpu_torch/csrc"
 PROBE_SOURCE = f"{CSRC}/probes.cu"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): device
-# memory, and the tensor cores in operations
+# memory (``merge_roofline``'s), and the tensor cores in operations
 # (2 per MAC) per second by operand type; u8x4 runs on the int8 rate
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = merge_roofline.HBM_BYTES_PER_S
 TC_OPS_PER_S = {"tf32": 495e12, "bf16": 989e12, "u8x4": 1979e12}
 # special function units of one Hopper SM: transcendental results per clock
 # (exp, log), against its 128 FP32 lanes
@@ -388,6 +406,13 @@ TRANSPOSE_SHAPES = (((16, 128), True), ((128, 16), True), ((17, 45), True),
 # which 16 reads sample 8, 24 sample 11; experiment 8: 5 and 1, 16 reads
 # sample 5).
 LIST_SIZE_CELLS = ((0, 64, 4, 4, 24), (8, 4, 2, 2, 16))
+# phase 14: the decode benchmark's command lines, each run with --verify,
+# as many reads as one batch so that no slot is padding; gate (b) decodes
+# that batch again with the plain version on every k-th block step (m=14
+# ~0.1 s a block a read)
+BENCH_RUNS = (["--smoke"],
+              ["--config", "m11", "--batch", "16", "--reads", "16"],
+              ["--config", "m14best", "--batch", "4", "--reads", "4"])
 # phase 4: the tree pop's CT past launch latency: [64, 8, 32768], 128 MiB
 # of inputs
 TREEPOP_LARGE = 32768
@@ -1847,15 +1872,54 @@ def phase_reshape_large(rng) -> dict:
     return out
 
 
+def phase_lse_flat(cfg, enc, post) -> dict:
+    """Phase 7b, last part: the lse kernel's L <= 16 bucket, the flat
+    merge with its candidates in local memory, which no published config
+    and no path of the port runs (the JAX package's lse has no L > 16
+    config), at list size ``LSE_FLAT_L``: the middle block timed at B=1 on
+    ``post`` and at B=``LSE_FLAT_B`` on reads of phase 3's first batch in
+    ``post``'s orientation, held bit-equal to the plain version there and
+    counted against its bound (``lse_bound``). Returns the times, bounds
+    and the bucket's build."""
+    dec = LVADecoder(dataclasses.replace(cfg, list_size=LSE_FLAT_L),
+                     device="cuda")
+    posts, rcs, _ = simulate_posts(enc.oligos, 8,
+                                   np.random.default_rng(SEED))
+    same = [p for p, r in zip(posts, rcs) if r == cfg.code.rc][:LSE_FLAT_B]
+    if len(same) < LSE_FLAT_B:
+        fail(f"phase 7b: {len(same)} reads in one orientation for "
+             f"B={LSE_FLAT_B}")
+    out = {"L": LSE_FLAT_L, "info": lva_acs.lse_kernel_info(LSE_FLAT_L)}
+    for reads in ([post], same):
+        batch, nblks = pack_posts(reads)
+        T = int(nblks.min())
+        check = CheckedACS(timed=T // 2, check=lambda t: False, lse=True)
+        dec.decode(batch, nblks, acs=check)
+        start1, active = check.timed_args
+        bnd = lse_bound(dec, start1, active, check.needed)
+        B = len(reads)
+        log(f"phase 7b: L = {LSE_FLAT_L} B={B}: block {T // 2} bit-equal, "
+            f"kernel {check.ms:.4f} ms, plain {check.plain_ms:.4f} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_term']}, "
+            f"{100 * bnd['bound_ms'] / check.ms:.1f}% of it")
+        out[f"B{B}"] = {"ms": check.ms, "plain_ms": check.plain_ms,
+                        "bound": bnd,
+                        "share_of_bound": bnd["bound_ms"] / check.ms,
+                        "max_abs_err": check.err}
+    log(f"phase 7b: the L <= 16 bucket's build: {json.dumps(out['info'])}")
+    return out
+
+
 def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
     """Phase 7: logsumexp path combining through its flat-merge kernel
     (``acs_block_lse``) at the headline config. (a) The kernel against its
     plain version on one read at B=1, as phase 1 does for the K-way kernel
     but without the sorted-rows check (lse rows are unsorted by design);
     (b) the L <= 8 bucket at L = 3 and 5 and the L <= 16 bucket at L = 12
-    (``LSE_LIST_SIZES``); (c) phase 3's first batch at the main
-    path's shapes (B=4 by orientation), every ``LSE_CHECK_EVERY``-th block
-    checked, one block timed and its bound counted; (d) the lse path end to
+    (``LSE_LIST_SIZES``), that bucket timed (``phase_lse_flat``); (c)
+    phase 3's first batch at the main path's shapes (B=4 by orientation),
+    every ``LSE_CHECK_EVERY``-th block checked, one block timed and its
+    bound counted; (d) the lse path end to
     end: phase 3's 32 reads in batches of 8 through ``PipelineDecoder(...,
     path_combine="logsumexp")``, ``majority_vote`` and ``recover_file``,
     with the launch counts set to 0 just before. Returns the kernels-line
@@ -1865,6 +1929,7 @@ def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
     ms_b1, plain_b1, err, _ = phase_kernel(dec, post, tag="phase 7a")
     for L in LSE_LIST_SIZES:
         phase_bucket(cfg, post, L, tag="phase 7b")
+    flat = phase_lse_flat(cfg, enc, post)
     (B, ms, plain_ms), (start1, active), needed, err_b = phase_batch(
         enc, exp, "cuda", LSE, every=LSE_CHECK_EVERY, tag="phase 7c")
     bnd = lse_bound(dec, start1, active, needed)
@@ -1921,7 +1986,9 @@ def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
             "L8": lva_acs.lse_kernel_info(8), f"bound_B{B}": bnd,
             "share_of_bound": bnd["bound_ms"] / ms,
             "s_per_read": wall / n_reads, "launches": launches,
-            "steps": pdec.steps, "crc_pass": crc}
+            "steps": pdec.steps, "crc_pass": crc,
+            # launched by no path: times and bound only
+            f"L{LSE_FLAT_L}": flat}
     return entry, line
 
 
@@ -3059,6 +3126,51 @@ def phase_list_sizes(data: bytes, gpu: str):
             if k != "gpu"}, line
 
 
+def phase_bench(gpu: str):
+    """Phase 14: the decode benchmark (``bench.py``) in this process,
+    ``bench.main`` on each of ``BENCH_RUNS`` with ``--verify`` and the K1
+    count set to 0 just before it: its one JSON line with a rate above 0
+    and ``lists_match`` true (the config's goldens, and gate (b): the
+    timed loop's first batch decoded again, its checked block steps
+    bit-equal to ``acs_block_ref``, every row sorted, each read's lists
+    those the timed loop gave), one K1 launch per forward block step of
+    its warm-up and timed loop. Returns the K1 launches of those loops and
+    the ``bench`` line."""
+    torch.cuda.empty_cache()
+    line = {"gpu": gpu}
+    launches = 0
+    for argv in BENCH_RUNS:
+        argv = [*argv, "--verify"]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        lva_acs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(argv)
+        secs = time.perf_counter() - t0
+        run_launches = lva_acs.LAUNCHES
+        out = buf.getvalue().splitlines()
+        rec = json.loads(out[-1]) if out else {}
+        log(f"phase 14: bench {' '.join(argv)}: exit {rc}, {secs:.1f} s, "
+            f"{run_launches} K1 launches in all: {json.dumps(rec)}")
+        gate = (rec.get("gate") or {}).get("bench_reads") or {}
+        if rc != 0 or len(out) != 1 or not (rec.get("value") or 0) > 0 \
+                or rec.get("lists_match") is not True:
+            fail(f"phase 14: bench {' '.join(argv)} failed: {out}")
+        if not (gate["checked"] > 0 and gate["blocks_differ"] == 0
+                and gate["blocks_unsorted"] == 0
+                and gate["reads"] == rec["batch"]):
+            fail(f"phase 14: gate (b) of {' '.join(argv)}: {gate}")
+        if rec["k1_launches"] == 0 or rec["k1_launches"] != \
+                rec["block_steps"]:
+            fail(f"phase 14: {rec['k1_launches']} K1 launches for "
+                 f"{rec['block_steps']} block steps")
+        launches += rec["k1_launches"]
+        line[rec["metric"]] = {"argv": argv, "s": secs,
+                               "k1_launches_all": run_launches, "line": rec}
+    return launches, line
+
+
 def report_part(tag: str, fn):
     """One part of phase 12, with the K1 count set to 0 just before it and
     the peak memory reset: (its result, seconds, K1 launches, peak GiB)."""
@@ -3295,6 +3407,10 @@ def main() -> int:
     list_launches, list_line = phase_list_sizes(data, gpu)
     log(f"phase 13: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    bench_launches, bench_line = phase_bench(gpu)
+    log(f"phase 14: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs and lva_acs_lse times below: one block step at the main "
         f"path's B={B}")
@@ -3309,6 +3425,7 @@ def main() -> int:
     log(json.dumps({"train": train_line}))
     log(json.dumps({"reports": reports_line}))
     log(json.dumps({"list_sizes": list_line}))
+    log(json.dumps({"bench": bench_line}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -3331,6 +3448,8 @@ def main() -> int:
         "reports_launches": reports_launches,
         # phase 13's sim-decodes at experiments 0 (L = 64) and 8 (L = 4)
         "list_sizes_launches": list_launches,
+        # phase 14's bench runs: their warm-ups and timed loops
+        "bench_launches": bench_launches,
         # the build of each bucket: registers, local bytes, threads per SM
         "resources": resources,
         "max_abs_err": err,

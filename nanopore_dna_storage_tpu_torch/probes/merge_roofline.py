@@ -60,6 +60,9 @@ STREAM_SWEEPS = 12
 # measured rate instead: compares, selects and min / max issue on the ALU
 # pipe, 64 lanes an SM, half this.
 FP32_LANES_PER_SM = 128
+# H100 SXM device memory rate, NVIDIA's data sheet (700 W): the bytes
+# bounds of the ACS step (``acs_needed_bytes``) are over it
+HBM_BYTES_PER_S = 3.35e12
 
 # the lanes a merge column is split over (csrc/probes.cu kMergeLanes); the
 # columns a stream thread runs, over 8 rounds unrolled (any other shape

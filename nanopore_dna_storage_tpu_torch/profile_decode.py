@@ -32,9 +32,8 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
+from .bench import trace_device
 from .config import ConvCodeConfig, DecodeConfig
 from .io.post import pack_posts
 from .ops.lva import LVADecoder
@@ -150,23 +149,15 @@ def main(argv=None) -> int:
     pdec = PipelineDecoder(exp, L, 20, device="cuda")
     num_oligos = enc.num_oligos_data + enc.num_oligos_rs
     pdec.decode_posts(posts[:B], rcs[:B], num_oligos)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pdec.decode_posts(posts[:B], rcs[:B], num_oligos)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
-    dev_s = sum(e.self_device_time_total for e in on_dev) / 1e6
+    trace = trace_device(
+        lambda: pdec.decode_posts(posts[:B], rcs[:B], num_oligos))
+    dev_s = trace["device_total_s"]
     print(f"profiled decode_posts of {B} reads ({int(rcs[:B].sum())} rc): "
-          f"wall {wall:.4f} s, device time {dev_s:.4f} s, device idle share "
-          f"{1 - dev_s / wall:.4f}")
-    for e in sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e6:.4f} s "
-              f"({100 * e.self_device_time_total / 1e6 / dev_s:.2f}%) "
-              f"{e.count} calls: {e.key[:90]}")
+          f"wall {trace['wall_s']:.4f} s, device time {dev_s:.4f} s, device "
+          f"idle share {trace['idle_share']:.4f}")
+    for op in trace["top_ops"]:
+        print(f"  {op['s']:.4f} s ({100 * op['s'] / dev_s:.2f}%) "
+              f"{op['calls']} calls: {op['name'][:90]}")
     print(f"gpu: {gpu}")
     return 0
 

@@ -215,8 +215,8 @@ def test_forbidden_matches_by_name_or_dotted_prefix():
 
 
 # modules of the port the guards below must reach, in every subpackage
-PORT_MODULES = ("cli.py", "coding/conv.py", "io/fast5.py", "io/lists.py",
-                "models/flipflop.py", "models/train.py",
+PORT_MODULES = ("bench.py", "cli.py", "coding/conv.py", "io/fast5.py",
+                "io/lists.py", "models/flipflop.py", "models/train.py",
                 "native/__init__.py", "ops/lva.py", "ops/vocab.py",
                 "parallel/mesh.py", "pipeline/data_prep.py",
                 "pipeline/real_data.py", "pipeline/simulate.py",
