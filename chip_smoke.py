@@ -75,7 +75,7 @@ Phases, each fatal on failure:
    a few odd sizes, and at [8, 8, 1,048,576] timed beside ``clone`` and its
    bound; the launch floor at one thread and at the grids of dynrow,
    int16, reshape and alias (``grid_launch_floor_ms``);
-7. logsumexp path combining through its flat-merge kernel
+7. logsumexp path combining through its kernel
    (``acs_block_lse``, ``csrc/lva_lse.cu``) at the headline config: the
    kernel bit-equal to its plain version on one read at B=1 (blocks over
    the read, position 0 and an inactive block, then the whole read's lists,
@@ -85,7 +85,15 @@ Phases, each fatal on failure:
    of phase 3's first batch at B=4, one block timed there; then phase 3's
    32 reads through ``PipelineDecoder(..., path_combine="logsumexp")``,
    which must recover the file byte for byte with one lse launch per block
-   step and no K-way launch;
+   step and no K-way launch; (7e) the same path at experiment 0 (m=8 r=1/2,
+   C=256) at L = 64 and 16 (``LSE_PATH_CELLS``), the lse kernel's two lane
+   buckets: the kernel bit-equal to its plain version on blocks of one
+   forward read and of four, one of them also with the reads inactive,
+   the middle block timed against its bound; then 24 reads through
+   ``PipelineDecoder(experiment(0), L, 20, path_combine="logsumexp")``,
+   every 16th block step of the first batch bit-equal, which must recover
+   the 100-byte file byte for byte with one lse launch per block step and
+   no K-way launch;
 8. the basecaller chain at the published widths (``models/flipflop.py``
    ``FlipflopNet`` on seeded ``init_params``, ``ops/fwdbwd.py``,
    ``ops/crf_decode.py``): 32 reads of experiment 7 from
@@ -96,12 +104,12 @@ Phases, each fatal on failure:
    with one K1 launch per block step; ``Basecaller.basecall`` on the raw
    signals writing a FASTQ with qualities in 33..126; each stage timed,
    then profiled for its device operations;
-9. the scale-out decode (``parallel/``) at the headline config on phase
-   3's 32 reads written as ``.post`` files: ``ShardedDecoder.decode`` at
-   world 1 on the first batch's forward reads equal to
-   ``LVADecoder.decode`` and the host CRC/index check, and again over a
-   one-rank nccl group in this process, its count reduced and its shards
-   gathered on the card, equal to the world-1 result; its on-card
+9. the scale-out decode (``parallel/``) at the headline config on
+   ``PARALLEL_READS`` reads of phase 3's file written as ``.post`` files:
+   ``ShardedDecoder.decode`` at world 1 on the first batch's forward reads
+   equal to ``LVADecoder.decode`` and the host CRC/index check, and again
+   over a one-rank nccl group in this process, its count reduced and its
+   shards gathered on the card, equal to the world-1 result; its on-card
    classification timed against the host's; the gated decode job through
    ``python -m nanopore_dna_storage_tpu_torch.parallel.multihost`` as one
    nccl rank and as two gloo ranks sharing ``cuda:0``, each rank launching
@@ -111,7 +119,8 @@ Phases, each fatal on failure:
    equal; ``cli rs-recover`` on the lists recovering the file byte for
    byte, and ``cli error-rate`` on them;
 10. the real-read path at the headline config (``signal/barcode.py``,
-   ``pipeline/real_data.py``, ``cli decode-posts``): 64 barcoded reads of
+   ``pipeline/real_data.py``, ``cli decode-posts``): ``REAL_READS``
+   barcoded reads of
    phase 3's file, every second one reverse complement, with phase 3's
    channel errors, through ``synthetic_post``; their basecalls and
    ``.trans`` block indices from ``viterbi_flipflop_batch`` on the card,
@@ -303,10 +312,17 @@ LSE = "logsumexp"
 # full width takes ~0.1-0.3 s a block step
 LSE_CHECK_EVERY = 16
 # phase 7b: the lse kernel's L <= 8 bucket below its full list size, and
-# its flat L <= 16 bucket; that bucket timed at L = LSE_FLAT_L on one read
-# and on LSE_FLAT_B reads
+# its L <= 16 lane bucket with dead slots; that bucket timed at L =
+# LSE_LANES_L on one read and on LSE_LANES_B reads
 LSE_LIST_SIZES = (3, 5, 12)
-LSE_FLAT_L, LSE_FLAT_B = 12, 4
+LSE_LANES_L, LSE_LANES_B = 12, 4
+# phase 7e: the lse path at experiment 0 (m=8 r=1/2, C=256), each cell (list
+# size, the B timed beside B=1, the decode's batch and reads): L = 64, the
+# paper's m=8 list size (the L <= 64 lane bucket), and L = 16, Table 2's
+# best m=8 reading cost (the L <= 16 bucket at its full size); each read
+# keeps its selections for the whole decode (~3.9 GB at L = 64). The reads
+# are phase 13's: 24 sample 11 of the file's 13 oligos
+LSE_PATH_CELLS = ((64, 4, 4, 24), (16, 4, 4, 24))
 # phase 8: reads of experiment 7 through the basecaller chain at the
 # published widths, decoded in batches as phase 3 decodes (each read's
 # selections take ~2.7 GB at ~520 blocks)
@@ -317,15 +333,17 @@ CHAIN_BATCH = 8
 # another order by cuBLAS and by the CPU's BLAS, through five recurrent
 # layers of ~520 steps (the CPU against the JAX package: 2.4e-6)
 CHAIN_TOL = 1e-4
-# phase 9: phase 3's reads as .post files, decoded by the scale-out job
-# PARALLEL_BATCH a step (each read's selections take ~2.1 GB on the card)
-PARALLEL_READS = 32
+# phase 9: reads of phase 3's file as .post files, decoded by the
+# scale-out job PARALLEL_BATCH a step (each read's selections take ~2.1 GB
+# on the card); 24 sample each of the file's 6 oligos
+PARALLEL_READS = 24
 PARALLEL_BATCH = 8
 # phase 10: barcoded reads of experiment 7 (half of them reverse
 # complement) through decode-posts, REAL_BATCH reads a decode (each read's
 # selections take ~2.1 GB on the card); 8 raw-signal reads through the
-# basecaller; the larger vocabulary case: 16 ten-mers, a message of 20
-REAL_READS = 64
+# basecaller; the larger vocabulary case: 16 ten-mers, a message of 20.
+# 32 reads sample each of the file's 6 oligos at least twice
+REAL_READS = 32
 REAL_BATCH = 16
 RAW_READS = 8
 VOCAB_WORDS, VOCAB_WORD_LEN, VOCAB_MSG_LEN = 16, 10, 20
@@ -383,9 +401,6 @@ PROBE_SOURCE = f"{CSRC}/probes.cu"
 # (2 per MAC) per second by operand type; u8x4 runs on the int8 rate
 HBM_BYTES_PER_S = merge_roofline.HBM_BYTES_PER_S
 TC_OPS_PER_S = {"tf32": 495e12, "bf16": 989e12, "u8x4": 1979e12}
-# special function units of one Hopper SM: transcendental results per clock
-# (exp, log), against its 128 FP32 lanes
-SFU_PER_SM = 16
 # phase 5: the shuffle form checked at every k it takes and at columns
 # that end in a partial warp (96, 2080); the transpose at shapes of each
 # tile height and both paths ((shape, x aligned to 16 bytes))
@@ -600,8 +615,10 @@ class CheckedACS:
     at the first block that mixes active and inactive reads (the kernel
     alone at the others); at block ``timed`` it also times both and counts
     what the step must do: the bytes (``acs_needed_bytes``) under max
-    combining, the operations and exp/log calls (``acs_lse_needed``) under
-    logsumexp combining. ``lse`` picks the kernel."""
+    combining; under logsumexp combining the operations and exp/log calls
+    as the grouping merge needs them and as the flat merge runs them
+    (``acs_lse_grouped_needed``, ``acs_lse_needed``), the two
+    ``lse_bound`` takes. ``lse`` picks the kernel."""
 
     def __init__(self, timed: int, check=lambda t: True, lse=False,
                  inactive: int = -1):
@@ -633,8 +650,9 @@ class CheckedACS:
             self.timed_B = sel.shape[0]
             self.timed_args = (rest[2].tolist(), rest[3].tolist())
             self.needed = (
-                merge_roofline.acs_lse_needed(tabs, prev, st_ref, sel_ref,
-                                              *rest) if self.lse else
+                tuple(count(tabs, prev, st_ref, sel_ref, *rest) for count in
+                      (merge_roofline.acs_lse_grouped_needed,
+                       merge_roofline.acs_lse_needed)) if self.lse else
                 merge_roofline.acs_needed_bytes(tabs, prev[0], st_ref[0],
                                                 sel_ref, *rest))
             # both steps only read prev and rewrite the same stale cells,
@@ -759,35 +777,6 @@ def acs_bound(dec, start1, active, nbytes: int) -> dict:
             "bytes_every_slot": every,
             "bytes_every_slot_ms": 1e3 * every / HBM_BYTES_PER_S,
             "flat_ops": flat, "flat_ops_ms": 1e3 * flat / peak}
-
-
-def lse_bound(dec, start1, active, needed) -> dict:
-    """The bound of one logsumexp ACS block step whose reads have window
-    starts ``start1`` and flags ``active``: the largest of the bytes a flat
-    merge must move (every slot of the W + 1 previous rows read, the W rows
-    written and the selections: ``bytes_every_slot``) over the memory rate,
-    its operations (``acs_lse_needed``: the scans and class passes over
-    every candidate, as this step's data needs them) over the FP32 lane
-    peak, and its exp and log calls over the special function units' peak.
-    ``needed``: (operations, exp calls, log calls) of the step."""
-    spec = dec.spec
-    L, C, W = spec.list_size, spec.code.nstate_conv, spec.window
-    cells = 8 * L * C
-    nbytes = sum(active) * (2 * W + 1) * cells * 12 + len(start1) * W * cells
-    ops, nexp, nlog = needed
-    peak, _ = merge_roofline.lane_peak()
-    sfu = peak * SFU_PER_SM / merge_roofline.FP32_LANES_PER_SM
-    times = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
-             "operations": 1e3 * ops / peak,
-             "sfu": 1e3 * (nexp + nlog) / sfu}
-    by = max(times, key=times.get)
-    return {"bytes": nbytes, "bytes_ms": times["bytes"], "ops": ops,
-            "ops_ms": times["operations"], "exp_calls": nexp,
-            "log_calls": nlog, "sfu_per_s": sfu, "sfu_ms": times["sfu"],
-            "bound_ms": times[by],
-            # the kernels line's unit: the SFU calls are operations
-            "bound_by": "bytes" if by == "bytes" else "operations",
-            "bound_term": by}
 
 
 def acs_resources(lse: bool = False, L: int = 8) -> dict:
@@ -1872,36 +1861,38 @@ def phase_reshape_large(rng) -> dict:
     return out
 
 
-def phase_lse_flat(cfg, enc, post) -> dict:
-    """Phase 7b, last part: the lse kernel's L <= 16 bucket, the flat
-    merge with its candidates in local memory, which no published config
-    and no path of the port runs (the JAX package's lse has no L > 16
-    config), at list size ``LSE_FLAT_L``: the middle block timed at B=1 on
-    ``post`` and at B=``LSE_FLAT_B`` on reads of phase 3's first batch in
-    ``post``'s orientation, held bit-equal to the plain version there and
-    counted against its bound (``lse_bound``). Returns the times, bounds
-    and the bucket's build."""
-    dec = LVADecoder(dataclasses.replace(cfg, list_size=LSE_FLAT_L),
+def phase_lse_lanes(cfg, enc, post) -> dict:
+    """Phase 7b, last part: the lse kernel's L <= 16 lane bucket at list
+    size ``LSE_LANES_L`` at the headline config (m=11), where its time is
+    comparable with the flat form's that it replaced: the middle block
+    timed at B=1 on ``post`` and at B=``LSE_LANES_B`` on reads of phase 3's
+    first batch in ``post``'s orientation, held bit-equal to the plain
+    version there (L = 12 leaves dead slots in the bucket) and counted
+    against its bound (``merge_roofline.lse_bound``). Returns the times,
+    bounds and the bucket's build."""
+    dec = LVADecoder(dataclasses.replace(cfg, list_size=LSE_LANES_L),
                      device="cuda")
     posts, rcs, _ = simulate_posts(enc.oligos, 8,
                                    np.random.default_rng(SEED))
-    same = [p for p, r in zip(posts, rcs) if r == cfg.code.rc][:LSE_FLAT_B]
-    if len(same) < LSE_FLAT_B:
+    same = [p for p, r in zip(posts, rcs) if r == cfg.code.rc][:LSE_LANES_B]
+    if len(same) < LSE_LANES_B:
         fail(f"phase 7b: {len(same)} reads in one orientation for "
-             f"B={LSE_FLAT_B}")
-    out = {"L": LSE_FLAT_L, "info": lva_acs.lse_kernel_info(LSE_FLAT_L)}
+             f"B={LSE_LANES_B}")
+    out = {"L": LSE_LANES_L, "info": lva_acs.lse_kernel_info(LSE_LANES_L)}
     for reads in ([post], same):
         batch, nblks = pack_posts(reads)
         T = int(nblks.min())
         check = CheckedACS(timed=T // 2, check=lambda t: False, lse=True)
         dec.decode(batch, nblks, acs=check)
         start1, active = check.timed_args
-        bnd = lse_bound(dec, start1, active, check.needed)
+        bnd = merge_roofline.lse_bound(dec.spec, start1, active,
+                                      *check.needed)
         B = len(reads)
-        log(f"phase 7b: L = {LSE_FLAT_L} B={B}: block {T // 2} bit-equal, "
+        log(f"phase 7b: L = {LSE_LANES_L} B={B}: block {T // 2} bit-equal, "
             f"kernel {check.ms:.4f} ms, plain {check.plain_ms:.4f} ms, "
             f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_term']}, "
-            f"{100 * bnd['bound_ms'] / check.ms:.1f}% of it")
+            f"{100 * bnd['bound_ms'] / check.ms:.1f}% of it; flat merge's "
+            f"{bnd['bound_flat_ms']:.4f} ms by {bnd['bound_flat_term']}")
         out[f"B{B}"] = {"ms": check.ms, "plain_ms": check.plain_ms,
                         "bound": bnd,
                         "share_of_bound": bnd["bound_ms"] / check.ms,
@@ -1911,12 +1902,12 @@ def phase_lse_flat(cfg, enc, post) -> dict:
 
 
 def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
-    """Phase 7: logsumexp path combining through its flat-merge kernel
+    """Phase 7: logsumexp path combining through its kernel
     (``acs_block_lse``) at the headline config. (a) The kernel against its
     plain version on one read at B=1, as phase 1 does for the K-way kernel
     but without the sorted-rows check (lse rows are unsorted by design);
     (b) the L <= 8 bucket at L = 3 and 5 and the L <= 16 bucket at L = 12
-    (``LSE_LIST_SIZES``), that bucket timed (``phase_lse_flat``); (c)
+    (``LSE_LIST_SIZES``), that bucket timed (``phase_lse_lanes``); (c)
     phase 3's first batch at the main path's shapes (B=4 by orientation),
     every ``LSE_CHECK_EVERY``-th block checked, one block timed and its
     bound counted; (d) the lse path end to
@@ -1929,16 +1920,18 @@ def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
     ms_b1, plain_b1, err, _ = phase_kernel(dec, post, tag="phase 7a")
     for L in LSE_LIST_SIZES:
         phase_bucket(cfg, post, L, tag="phase 7b")
-    flat = phase_lse_flat(cfg, enc, post)
+    lanes = phase_lse_lanes(cfg, enc, post)
     (B, ms, plain_ms), (start1, active), needed, err_b = phase_batch(
         enc, exp, "cuda", LSE, every=LSE_CHECK_EVERY, tag="phase 7c")
-    bnd = lse_bound(dec, start1, active, needed)
+    bnd = merge_roofline.lse_bound(dec.spec, start1, active, *needed)
     log(f"lva_acs_lse bound at B={B}: {bnd['bytes']} bytes (every slot) "
         f"{bnd['bytes_ms']:.4f} ms, {bnd['ops']} ops {bnd['ops_ms']:.4f} ms, "
         f"{bnd['exp_calls']} exp + {bnd['log_calls']} log calls "
         f"{bnd['sfu_ms']:.4f} ms: {bnd['bound_ms']:.4f} ms by "
         f"{bnd['bound_term']}; the kernel reaches "
-        f"{100 * bnd['bound_ms'] / ms:.1f}% of it")
+        f"{100 * bnd['bound_ms'] / ms:.1f}% of it; the flat merge's "
+        f"{bnd['flat_ops']} ops give {bnd['bound_flat_ms']:.4f} ms by "
+        f"{bnd['bound_flat_term']}")
 
     num_oligos = enc.num_oligos_data + enc.num_oligos_rs
     n_reads, batch = 32, 8
@@ -1981,15 +1974,174 @@ def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
         "bound_by": bnd["bound_by"],
         # no one PyTorch call computes a list-Viterbi block step
         "library_ms": None}
-    line = {"gpu": gpu, "ms_B1": ms_b1, "plain_ms_B1": plain_b1,
+    line = {"gpu": gpu, "B": B, "ms_B1": ms_b1, "plain_ms_B1": plain_b1,
             f"ms_B{B}": ms, f"plain_ms_B{B}": plain_ms,
             "L8": lva_acs.lse_kernel_info(8), f"bound_B{B}": bnd,
             "share_of_bound": bnd["bound_ms"] / ms,
             "s_per_read": wall / n_reads, "launches": launches,
             "steps": pdec.steps, "crc_pass": crc,
-            # launched by no path: times and bound only
-            f"L{LSE_FLAT_L}": flat}
+            # the L <= 16 bucket at m=11 (no path runs it at m=11)
+            f"L{LSE_LANES_L}": lanes}
     return entry, line
+
+
+def lse_path_cell(data: bytes, L: int, B: int, batch: int,
+                  reads: int) -> dict:
+    """One cell of phase 7e, experiment 0 at list size ``L`` under
+    logsumexp combining: (a) the lse kernel against its plain version on
+    one simulated forward read and on ``B`` of them, blocks at position 0,
+    spread over the reads and at their end bit-equal, one of them also with
+    the reads made inactive, the middle block timed and counted against its
+    bound (``lse_bound``); (b) the lse path end to end: ``reads`` reads
+    simulated ``batch`` at a time through ``PipelineDecoder(experiment(0),
+    L, 20, path_combine="logsumexp")``, every ``LSE_CHECK_EVERY``-th block
+    step of the first batch held bit-equal to the plain version on the
+    card (as phase 7c holds the first batch; the plain step takes ~0.5 s a
+    block at L = 64), then ``majority_vote`` and ``recover_file``, which
+    must give the file byte for byte, with the launch counts set to 0 just
+    before: one lse launch per forward block step and no K-way launch; the
+    path's s/read from the batches after the checked one. Returns the
+    cell's record."""
+    tag = f"phase 7e (experiment 0, L={L})"
+    exp = experiment(0)
+    enc = encode_bytes(data, exp)
+    posts, rcs, _ = simulate_posts(enc.oligos, 4 * B,
+                                   np.random.default_rng(SEED))
+    fwd = [p for p, rc in zip(posts, rcs) if not rc][:B]
+    if len(fwd) < B:
+        fail(f"{tag}: {len(fwd)} forward reads for B={B}")
+    dec = LVADecoder(DecodeConfig(
+        code=ConvCodeConfig(mem=exp.conv_mem, rate=exp.conv_rate,
+                            msg_len=exp.msg_len()),
+        list_size=L, max_deviation=20, path_combine=LSE), device="cuda")
+    info = lva_acs.lse_kernel_info(L)
+    log(f"{tag}: C={dec.spec.code.nstate_conv} W={dec.spec.window}; nblk "
+        f"{[len(p) for p in fwd]}; lse_kernel_info({L}) {json.dumps(info)}")
+    rec = {"list_size": L, "lse_kernel_info": info}
+    err = 0.0
+    for n in sorted({1, B}):
+        batch_posts, nblks = pack_posts(fwd[:n])
+        T = int(nblks.min())
+        blocks = {0, 1, T // 4, T // 2, 3 * T // 4, int(nblks.max()) - 1}
+        check = CheckedACS(timed=T // 2, check=blocks.__contains__, lse=True,
+                           inactive=T // 4)
+        _, _, valid = dec.decode(batch_posts, nblks, acs=check)
+        if check.checked < len(blocks) or not valid[:, 0].all():
+            fail(f"{tag}: B={n}: {check.checked} blocks checked, top "
+                 f"entries valid {valid[:, 0]}")
+        start1, active = check.timed_args
+        bnd = merge_roofline.lse_bound(dec.spec, start1, active,
+                                      *check.needed)
+        err = max(err, check.err)
+        log(f"{tag}: B={n}: {check.checked} of {check.blocks} blocks "
+            f"bit-equal, block {T // 4} also inactive; block {T // 2}: "
+            f"kernel {check.ms:.4f} ms, plain {check.plain_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_term']}, "
+            f"{100 * bnd['bound_ms'] / check.ms:.1f}% of it; flat merge's "
+            f"{bnd['bound_flat_ms']:.4f} ms by {bnd['bound_flat_term']}")
+        rec[f"B{n}"] = {"ms": check.ms, "plain_ms": check.plain_ms,
+                        "bound": bnd,
+                        "share_of_bound": bnd["bound_ms"] / check.ms,
+                        "blocks_checked": check.checked,
+                        "max_abs_err": check.err}
+
+    num_oligos = enc.num_oligos_data + enc.num_oligos_rs
+    rng = np.random.default_rng(SEED)
+    check = CheckedACS(timed=-1, check=lambda t: t % LSE_CHECK_EVERY == 0,
+                       lse=True)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lva_acs.LAUNCHES = lva_acs.LSE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    pdec = PipelineDecoder(exp, L, 20, path_combine=LSE, device="cuda")
+    index, payload, batch_s = [], [], []
+    for i in range(reads // batch):
+        t1 = time.perf_counter()
+        posts, rcs, _ = simulate_posts(enc.oligos, batch, rng)
+        out = pdec.decode_posts(posts, rcs, num_oligos,
+                                **({"acs": check} if i == 0 else {}))
+        index.append(out.index)
+        payload.append(out.payload)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t1)
+    ok, got = recover_file(majority_vote(np.concatenate(index),
+                                         np.concatenate(payload)),
+                           exp, len(data))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, kway = lva_acs.LSE_LAUNCHES, lva_acs.LAUNCHES
+    crc = int((np.concatenate(index) >= 0).sum())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    err = max(err, check.err)
+    # the first batch also runs the plain step on its checked blocks
+    per_read = sum(batch_s[1:]) / (reads - batch)
+    log(f"{tag}: the lse path: {wall:.3f} s for {reads} reads in batches of "
+        f"{batch}, {batch_s[0]:.3f} s of it the first batch (the plain step "
+        f"on {check.checked} of its {check.blocks} block steps, "
+        f"{check.mixed} with active and inactive reads); {per_read:.4f} "
+        f"s/read over the other batches; {crc} pass CRC; {launches} lse launches and "
+        f"{kway} K-way launches for {pdec.steps} block steps; peak device "
+        f"memory {peak:.2f} GiB")
+    if check.checked == 0 or check.mixed == 0:
+        fail(f"{tag}: {check.checked} block steps checked, {check.mixed} "
+             f"of them mixed")
+    if not (ok and got == data):
+        fail(f"{tag}: the logsumexp path did not recover the file byte for "
+             f"byte")
+    if launches == 0 or launches != pdec.steps or kway:
+        fail(f"{tag}: {launches} lse and {kway} K-way launches for "
+             f"{pdec.steps} block steps")
+    rec["path"] = {"reads": reads, "batch": batch, "s": wall,
+                   "batch_s": batch_s, "s_per_read": per_read, "lse_launches": launches,
+                   "k1_launches": kway, "block_steps": pdec.steps,
+                   "blocks_checked": check.checked, "crc_pass": crc,
+                   "peak_gib": peak}
+    rec["max_abs_err"] = err
+    return rec
+
+
+def phase_lse_path(data: bytes, gpu: str) -> dict:
+    """Phase 7e: the lse path at experiment 0's list sizes,
+    ``LSE_PATH_CELLS`` through ``lse_path_cell`` on the 100-byte file.
+    Returns the ``lse_path`` line."""
+    torch.cuda.empty_cache()
+    line = {"gpu": gpu}
+    for L, B, batch, reads in LSE_PATH_CELLS:
+        line[f"exp0_L{L}"] = lse_path_cell(data, L, B, batch, reads)
+    return line
+
+
+def lse_buckets(entry: dict, line: dict, path_line: dict,
+                resources: dict) -> dict:
+    """The kernels-line entry of the lse kernel with its three buckets:
+    ``launches`` summed over phase 7d's path (the L <= 8 bucket) and phase
+    7e's two (L = 16 and 64), and under ``buckets`` each bucket's launches,
+    build and its times, plain times and bound at B=4 (phase 7c at m=11 L=8,
+    phase 7e at experiment 0), and beside the bound the flat merge's
+    (``bound_flat_ms``)."""
+    buckets = {"L<=8": {"launches": entry["launches"], "ms": entry["ms"],
+                        "plain_ms": entry["plain_ms"],
+                        "bound_ms": entry["bound_ms"],
+                        "bound_flat_ms": line[
+                            f"bound_B{line['B']}"]["bound_flat_ms"],
+                        "resources": resources["L8"]}}
+    for L, B, _, _ in LSE_PATH_CELLS:
+        cell = path_line[f"exp0_L{L}"]
+        timed = cell[f"B{B}"]
+        buckets["L<=16" if L <= 16 else "L<=64"] = {
+            "launches": cell["path"]["lse_launches"], "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound"]["bound_ms"],
+            "bound_flat_ms": timed["bound"]["bound_flat_ms"],
+            "resources": resources["L12" if L <= 16 else "L64"]}
+        entry["max_abs_err"] = max(entry["max_abs_err"], cell["max_abs_err"])
+    buckets["L<=16"]["m11_L12_ms"] = {
+        f"B{B}": line[f"L{LSE_LANES_L}"][f"B{B}"]["ms"]
+        for B in (1, LSE_LANES_B)}
+    return {**entry,
+            "launches": sum(b["launches"] for b in buckets.values()),
+            "buckets": buckets}
 
 
 def device_ops(prof):
@@ -2301,7 +2453,8 @@ def list_files(outdir) -> dict:
 
 def phase_parallel(enc, exp, data: bytes, gpu: str):
     """Phase 9: the scale-out decode (``parallel/``) at the headline
-    config on phase 3's 32 reads, written as ``.post`` files. (a)
+    config on ``PARALLEL_READS`` reads of phase 3's file, written as
+    ``.post`` files. (a)
     ``ShardedDecoder.decode`` in this process at world 1 on phase 3's
     first batch's forward reads, equal to ``LVADecoder.decode`` and the
     host ``check_and_extract`` under the Pallas path's masking; the same
@@ -3314,8 +3467,11 @@ def main() -> int:
     resources = {f"L{L}": acs_resources(L=L) for L in (8, 12, 64)}
     for k, v in resources.items():
         log(f"phase 0: ACS kernel at {k}: {json.dumps(v)}")
-    lse_resources = acs_resources(lse=True)
-    log(f"phase 0: lse ACS kernel at L = 8: {json.dumps(lse_resources)}")
+    # the lse kernel's register bucket and its two lane buckets
+    lse_resources = {f"L{L}": acs_resources(lse=True, L=L)
+                     for L in (8, 12, 64)}
+    for k, v in lse_resources.items():
+        log(f"phase 0: lse ACS kernel at {k}: {json.dumps(v)}")
     log(f"phase 0: done in {time.perf_counter() - t0:.1f} s")
 
     data = np.random.default_rng(SEED).integers(
@@ -3383,6 +3539,12 @@ def main() -> int:
     log(f"phase 7: done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    lse_path_line = phase_lse_path(data, gpu)
+    lse_entry = lse_buckets(lse_entry, lse_line, lse_path_line,
+                            lse_resources)
+    log(f"phase 7e: done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     basecall_launches, basecall_line = phase_basecall(enc, exp, gpu)
     log(f"phase 8: done in {time.perf_counter() - t0:.1f} s")
 
@@ -3416,6 +3578,7 @@ def main() -> int:
         f"path's B={B}")
     log(json.dumps({"lva_acs": lva_line}))
     log(json.dumps({"lva_acs_lse": lse_line}))
+    log(json.dumps({"lse_path": lse_path_line}))
     log(json.dumps({"roofline": roofline}))
     log(json.dumps({"probes": probes_line}))
     log(json.dumps({"lowering": lowering_rates}))

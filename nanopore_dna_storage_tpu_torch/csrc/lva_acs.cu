@@ -85,17 +85,10 @@
 // nothing else touches scores, and the build passes --fmad=false. Hashes
 // are uint32 and stay below 2^30, so (h << 2) + 3 cannot wrap.
 
-#include <cmath>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "lva_common.cuh"
 
 namespace {
 
-constexpr int kNcrf = 8;  // flip-flop CRF states
-constexpr int kNq = 8;    // merge rows per destination: stay + up to 7 moves
-constexpr uint32_t kP1 = 1073741789u;
-constexpr uint32_t kP2 = 1073741783u;
-constexpr int kBlock = 128;
 // at least 7 blocks of kBlock resident per SM, so at most 72 registers a
 // thread
 constexpr int kMinBlocks = 7;
@@ -105,43 +98,9 @@ constexpr int kLanes = 4;
 constexpr int kRows = kNq / kLanes;
 constexpr int kTile = 32;
 constexpr int kLaneBlock = kTile * kLanes;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kGroup = (1u << kLanes) - 1;  // a destination's lanes
 // an emitted-pair slot not filled yet: no hash reaches it (both < 2^30)
 constexpr uint32_t kNoPair = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t hash_update(uint32_t h, int shift,
-                                                uint32_t nb, uint32_t p) {
-  uint32_t t = (h << shift) + nb;  // < 4p: three conditional subtracts
-  t = t >= p ? t - p : t;
-  t = t >= p ? t - p : t;
-  t = t >= p ? t - p : t;
-  return t;
-}
-
-// The row table of a block's (read b, window row, CRF destination f), into
-// shared memory: row q's offset in the plane of position pos - 1 (less the
-// conv state) and its transition score, the stay row lying in the next
-// plane, at position pos; and the number of rows (2 for a flop, 8 for a
-// flip). The caller synchronises the block after it.
-__device__ __forceinline__ void row_table(
-    const float* __restrict__ stay_tr, const float* __restrict__ move_tr,
-    const int32_t* __restrict__ qmap, int b, int f, size_t LC,
-    uint32_t* row_base, float* row_tr, int& row_count) {
-  for (int q = threadIdx.x; q < kNq; q += blockDim.x) {
-    const int g = q == 0 ? f : qmap[f * kNq + q];
-    row_base[q] = static_cast<uint32_t>((q == 0 ? kNcrf + f : g < 0 ? 0 : g) *
-                                        LC);
-    row_tr[q] = q == 0 ? stay_tr[b * kNcrf + f]
-                : g < 0 ? 0.0f
-                        : move_tr[(b * kNcrf + f) * kNcrf + g];
-  }
-  if (threadIdx.x == 0) {
-    int n = 1;
-    while (n < kNq && qmap[f * kNq + n] >= 0) ++n;
-    row_count = n;
-  }
-}
 
 // One head of a candidate row: the score of slot `at` of the previous buffer
 // plus the row's transition score, and its hashes, updated for a move row.
@@ -329,33 +288,11 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) lva_acs_kernel(
                          L, C, sel_shift);
 }
 
-// (score, row) of a destination's best head over its kLanes lanes, from
-// each lane's best: the higher score, the lower row on a tie. The NQ rows
-// lie in lanes 0..min(NQ, kLanes)-1 (the rows past NQ hold -inf); with NQ <
-// kLanes lane 0's result is broadcast.
-template <int NQ>
-__device__ __forceinline__ void group_best(float& v, int& k) {
-  constexpr int span = NQ < kLanes ? NQ : kLanes;
-#pragma unroll
-  for (int off = 1; off < span; off <<= 1) {
-    const float v2 = __shfl_xor_sync(kFull, v, off, kLanes);
-    const int k2 = __shfl_xor_sync(kFull, k, off, kLanes);
-    if (v2 > v || (v2 == v && k2 < k)) {
-      v = v2;
-      k = k2;
-    }
-  }
-  if (NQ < kLanes) {
-    v = __shfl_sync(kFull, v, 0, kLanes);
-    k = __shfl_sync(kFull, k, 0, kLanes);
-  }
-}
-
 // The merge of one destination over its kLanes lanes; this is lane l of
 // the destination at tile column t, and its row i is merge row q = i *
 // kLanes + l (`has`: the row exists, slot 0 at `at` in the plane of
 // position pos - 1, transition `tr`). Writes the emitted rounds into the
-// block's staging arrays and their count into st_n[t] (-1 for a
+// block's staging arrays st and their count into st.n[t] (-1 for a
 // destination that is not live). Every lane of the warp calls it.
 template <int NQ, int LB, typename SelT>
 __device__ __forceinline__ void merge_lanes(
@@ -363,8 +300,7 @@ __device__ __forceinline__ void merge_lanes(
     const uint32_t* __restrict__ q_h2, const uint32_t (&at)[kRows],
     const float (&tr)[kRows], const bool (&has)[kRows], int shift,
     uint32_t nb, bool live, int l, int t, int L, int C, int sel_shift,
-    float (*st_sc)[kTile], uint32_t (*st_h1)[kTile],
-    uint32_t (*st_h2)[kTile], SelT (*st_sel)[kTile], int* st_n) {
+    Staged<LB, kTile, SelT>& st) {
   constexpr int K = LB / kLanes;  // emitted pairs a lane holds
   const unsigned group = kGroup << ((threadIdx.x & 31) & ~(kLanes - 1));
   // each row's head (slot j) and the slot after it, -inf past the end
@@ -402,7 +338,8 @@ __device__ __forceinline__ void merge_lanes(
         bq = i * kLanes + l;
       }
     }
-    group_best<NQ>(top, bq);
+    // the NQ rows lie in lanes 0 .. min(NQ, kLanes) - 1
+    group_best<kLanes, (NQ < kLanes ? NQ : kLanes)>(top, bq);
     const int bl = bq % kLanes, bi = bq / kLanes;
     uint32_t xa = ha[0], xb = hb[0];
     int xj = j[0];
@@ -439,10 +376,10 @@ __device__ __forceinline__ void merge_lanes(
     const bool dup = (__ballot_sync(kFull, seen) & group) != 0;
     if (go && !dup) {
       if (l == 0) {
-        st_sc[r][t] = top;
-        st_h1[r][t] = ta;
-        st_h2[r][t] = tb;
-        st_sel[r][t] = SelT(bq * sel_shift + tj);
+        st.sc[r][t] = top;
+        st.h1[r][t] = ta;
+        st.h2[r][t] = tb;
+        st.sel[r][t] = SelT(bq * sel_shift + tj);
       }
       if (l == (r & (kLanes - 1))) {
 #pragma unroll
@@ -457,7 +394,7 @@ __device__ __forceinline__ void merge_lanes(
     }
     done = done || !go || r >= L;
   }
-  if (l == 0) st_n[t] = live ? r : -1;
+  if (l == 0) st.n[t] = live ? r : -1;
 }
 
 // The L <= LB bucket for LB = 16 and 64: kLanes lanes a destination, a
@@ -484,54 +421,27 @@ __global__ void __launch_bounds__(kLaneBlock) lva_acs_lanes_kernel(
   __shared__ float row_tr[kNq];
   __shared__ int row_count;
   // the emitted rounds of the block's kTile destinations, and their counts
-  __shared__ float st_sc[LB][kTile];
-  __shared__ uint32_t st_h1[LB][kTile], st_h2[LB][kTile];
-  __shared__ SelT st_sel[LB][kTile];
-  __shared__ int st_n[kTile];
+  __shared__ Staged<LB, kTile, SelT> st;
   row_table(stay_tr, move_tr, qmap, b, f, LC, row_base, row_tr, row_count);
   __syncthreads();
 
   const int s0 = blockIdx.x * kTile;
   const int pos = start1[b] + w;
-  SelT* out_sel = static_cast<SelT*>(sel_out) +
-                  ((static_cast<size_t>(b) * W + w) * kNcrf + f) * LC + s0;
-  // slot 0 of conv state s0 of this row in the prev and the stale buffer
-  const size_t row =
-      ((static_cast<size_t>(b) * P + pos) * kNcrf + f) * LC + s0;
-  const int cols = C - s0 < kTile ? C - s0 : kTile;
-  // each loop below walks the tile's L x cols outputs as whole rows (slot
-  // j, column x). An inactive read writes -1 selections and leaves the
-  // stale buffer alone
-  if (!active[b]) {
-    for (int i = threadIdx.x; i < L * kTile; i += kLaneBlock) {
-      const int j = i / kTile, x = i % kTile;
-      if (x < cols) out_sel[j * sC + x] = SelT(-1);
-    }
+  const Tile<kTile, kLaneBlock, SelT> tile{
+      L, C - s0 < kTile ? C - s0 : kTile, s0, sC,
+      // slot 0 of conv state s0 of this row in the prev and the stale buffer
+      ((static_cast<size_t>(b) * P + pos) * kNcrf + f) * LC + s0,
+      static_cast<SelT*>(sel_out) +
+          ((static_cast<size_t>(b) * W + w) * kNcrf + f) * LC + s0};
+  if (tile.edge(active[b], pos, valid, p_sc, p_h1, p_h2, s_sc, s_h1, s_h2,
+                row_tr))
     return;
-  }
-  // trellis position 0 (padded row 1) is stay-only: slot 0 takes the stay
-  // score, the other slots -inf, hashes pass through and the code is the slot
-  if (pos == 1) {
-    for (int i = threadIdx.x; i < L * kTile; i += kLaneBlock) {
-      const int j = i / kTile, x = i % kTile;
-      if (x >= cols) continue;
-      const size_t o = j * sC + x;
-      if (!valid[static_cast<size_t>(pos) * sC + s0 + x]) {
-        out_sel[o] = SelT(-1);
-        continue;
-      }
-      s_sc[row + o] = j == 0 ? p_sc[row + x] + row_tr[0] : -INFINITY;
-      s_h1[row + o] = p_h1[row + o];
-      s_h2[row + o] = p_h2[row + o];
-      out_sel[o] = SelT(j);
-    }
-    return;
-  }
 
   const int l = threadIdx.x % kLanes;  // this lane of its destination
   const int t = threadIdx.x / kLanes;  // its destination's tile column
   const int s = s0 + t;
-  const bool live = t < cols && valid[static_cast<size_t>(pos) * sC + s];
+  const bool live =
+      t < tile.cols && valid[static_cast<size_t>(pos) * sC + s];
   const int pat = pattern[pos];
   const int kvar = pat != 0;
   const int shift = 1 + kvar;
@@ -554,32 +464,13 @@ __global__ void __launch_bounds__(kLaneBlock) lva_acs_lanes_kernel(
   // every thread of a block has the same f, so the branch is uniform
   if (nq == 2)
     merge_lanes<2, LB, SelT>(p_sc + plane, p_h1 + plane, p_h2 + plane, at, tr,
-                             has, shift, nb, live, l, t, L, C, sel_shift,
-                             st_sc, st_h1, st_h2, st_sel, st_n);
+                             has, shift, nb, live, l, t, L, C, sel_shift, st);
   else
     merge_lanes<kNq, LB, SelT>(p_sc + plane, p_h1 + plane, p_h2 + plane, at,
                                tr, has, shift, nb, live, l, t, L, C,
-                               sel_shift, st_sc, st_h1, st_h2, st_sel, st_n);
+                               sel_shift, st);
   __syncthreads();
-
-  // the staged rounds as whole rows; slots past a destination's count are
-  // (-inf, 0, 0, -1), and a state that is not live selects -1 and leaves
-  // the stale buffer alone
-  for (int i = threadIdx.x; i < L * kTile; i += kLaneBlock) {
-    const int j = i / kTile, x = i % kTile;
-    if (x >= cols) continue;
-    const size_t o = j * sC + x;
-    const int n = st_n[x];
-    if (n < 0) {
-      out_sel[o] = SelT(-1);
-      continue;
-    }
-    const bool hit = j < n;
-    s_sc[row + o] = hit ? st_sc[j][x] : -INFINITY;
-    s_h1[row + o] = hit ? st_h1[j][x] : 0u;
-    s_h2[row + o] = hit ? st_h2[j][x] : 0u;
-    out_sel[o] = hit ? st_sel[j][x] : SelT(-1);
-  }
+  tile.write(st, s_sc, s_h1, s_h2);
 }
 
 using KernelFn = void (*)(const float*, const uint32_t*, const uint32_t*,

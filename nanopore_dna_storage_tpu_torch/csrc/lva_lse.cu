@@ -15,17 +15,22 @@
 // (h1, h2), then knocks that class out. The sum needs the score of every
 // duplicate, which the K-way kernel of lva_acs.cu never loads, and the
 // outputs are not sorted in slot, which the K-way merge needs of its inputs.
-// So one thread per (read, window row, CRF destination, conv state) loads all
-// of its nq * L candidates (the stay row and one move row per CRF
-// predecessor, as lva_acs.cu addresses them) and runs L rounds over them.
+// So each (read, window row, CRF destination, conv state) loads all of its
+// nq * L candidates (the stay row and one move row per CRF predecessor, as
+// lva_acs.cu addresses them) and runs L rounds over them: one thread at
+// L <= 8, a group of lanes of a warp at L <= 16 and L <= 64.
 //
-// What bounds it on this card: operations. At m=11 L=8 a flip destination
-// has 64 candidates, so every round is a pop over 64 scores and a class pass
-// over 64 hash pairs, L rounds per thread, while the bytes are one read of
-// every slot of the previous rows and one write of the outputs, and the exp
-// and log calls are few (chip_smoke.py counts all three on the step's data:
-// merge_roofline.acs_lse_needed; 0.206 ms at B=4 on an H100, by
-// operations). The first form of this kernel held the candidates in arrays
+// What bounds it on this card. The step must read every slot of the
+// previous rows and write the outputs (0.158 ms at m=11 L=8 B=4 on an
+// H100), and since a class stays whole until it is popped, a grouping of
+// the candidates by (h1, h2) gives the same rounds in about n log n
+// operations a destination (chip_smoke.py counts both on the step's data:
+// merge_roofline.lse_bound, acs_lse_grouped_needed). This kernel runs the
+// flat merge instead: at m=11 L=8 a flip destination has 64 candidates, so
+// every round is a pop over 64 scores and a class pass over 64 hash pairs,
+// L rounds per destination (acs_lse_needed: 0.206 ms at that step by
+// operations), which needs no sort across a destination's lanes and keeps
+// every candidate where it was loaded. The first form of this kernel held the candidates in arrays
 // indexed at run time, so in local memory (768 bytes a thread, 1,536
 // threads per SM: ~155 MB of stacks across the card, more than the L2), and
 // took 3.92 ms at B=4.
@@ -63,9 +68,36 @@
 // threads per SM), the merge alone on synthetic candidates ~1.19 ms. Holding
 // h2 in shared memory (224 registers, the same 256 threads per SM) was
 // slower, 2.09 ms; capped at 168 registers (384 threads per SM) it spilled.
-// The L <= 16 and L <= 64 buckets keep the first form's flat merge, its
-// arrays in local memory; they only need to be exact (chip_smoke.py holds
-// the 16 bucket at L = 12).
+//
+// The L <= 16 and L <= 64 buckets (the paper's m=8 list size is 64, its
+// best m=8 reading cost is at 16) give each destination G adjacent lanes of
+// a warp (kLanes16 = 4, kLanes64 = 32), the block 128 threads on 128 / G
+// neighbouring conv states of one (read, window row, f). The candidates lie
+// at padded index q * LB + slot (LB = 16 or 64, slots past L -inf, 2 rows
+// for a flop and 8 for a flip as above) and lane g holds the contiguous
+// N = 8 * LB / G of them from g * N (32 at L <= 16, 16 at L <= 64), so
+// ascending lanes hold ascending flat indices: its scores in registers,
+// its (h1, h2) pairs in its row of shared memory. Each round:
+// - each lane's tree pop (tree_max), then shuffle steps on (score, padded
+//   index) across the group, the lower index winning a tie (group_max);
+// - the winner's hashes read by its owner lane and shuffled to the group;
+// - each lane's member mask, the hashes read at compile-time indices;
+// - a ballot over "a member other than the winner": if no lane has one,
+//   the sum is 1.0f and the output best + 0.0f, with no log call;
+//   otherwise the f32 sum is chained from 0.0f through the member lanes
+//   in ascending order, each adding its terms in ascending index onto the
+//   sum of the lanes before, as the flat loop adds them;
+// - the knockout by select on the mask; the round's result staged in
+//   shared memory, written as whole rows once the block is done.
+// No array is indexed at run time but the shared-memory rows, so neither
+// build has a stack frame. On an H100 80GB HBM3 at 700 W (PERF.md, in
+// turns with the flat form of the first port, whose candidates lay in
+// local memory: 1.5-6 KB a thread): m=11 L=12 B=4 8.36 -> 3.64 ms; m=8
+// L=64 B=4 30.5 -> 5.61 ms. Hashes in registers were slower at both
+// sizes (L <= 16: 148 registers, 384 threads per SM, 5.04 ms; L <= 64:
+// 82, 640, 8.76 ms), as were 8 lanes at L <= 16 (4.32 ms), 16 lanes with
+// the hashes in registers at L <= 64 (7.04 ms) and every candidate in
+// shared memory (4.92, 7.76 ms).
 //
 // Exactness: each candidate score is one f32 add, prev + transition; each
 // term is exp of the f32 difference csc - best, evaluated in double and
@@ -74,26 +106,15 @@
 // build passes --fmad=false and no fast-math flag, so exp and log are the
 // libdevice functions that PyTorch's CUDA exp and log call on doubles.
 
-#include <cmath>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "lva_common.cuh"
 
 namespace {
 
-constexpr int kNcrf = 8;  // flip-flop CRF states
-constexpr int kNq = 8;    // merge rows per destination: stay + up to 7 moves
-constexpr uint32_t kP1 = 1073741789u;
-constexpr uint32_t kP2 = 1073741783u;
-constexpr int kBlock = 128;
-
-__device__ __forceinline__ uint32_t hash_update(uint32_t h, int shift,
-                                                uint32_t nb, uint32_t p) {
-  uint32_t t = (h << shift) + nb;  // < 4p: three conditional subtracts
-  t = t >= p ? t - p : t;
-  t = t >= p ? t - p : t;
-  t = t >= p ? t - p : t;
-  return t;
-}
+// the lane buckets: kLanes16 adjacent lanes of a warp a destination at
+// L <= 16, kLanes64 at L <= 64, kLaneBlock threads a block
+constexpr int kLanes16 = 4;
+constexpr int kLanes64 = 32;
+constexpr int kLaneBlock = 128;
 
 // the register bucket's list size: candidate q * kLr + slot
 constexpr int kLr = 8;
@@ -231,80 +252,150 @@ __device__ __forceinline__ void merge_regs(
   }
 }
 
-// The L <= 16 and L <= 64 merge: the candidates, flat index q * L + slot,
-// in arrays indexed at run time (local memory), L rounds of a max scan with
-// strict `>` in ascending index and a class pass in the same order that
-// adds one term per live member and knocks every member out.
-template <int LB, typename SelT>
-__device__ __forceinline__ void merge_flat(
-    const float* __restrict__ q_sc, const uint32_t* __restrict__ q_h1,
-    const uint32_t* __restrict__ q_h2, float* __restrict__ s_sc,
-    uint32_t* __restrict__ s_h1, uint32_t* __restrict__ s_h2,
-    SelT* __restrict__ out_sel, const uint32_t* row_base, const float* row_tr,
-    int nq, int c, int s, uint32_t pred, int shift, uint32_t nb, size_t row,
-    size_t sC, int L, int C, int sel_shift) {
-  const int n = nq * L;
-  float cs[kNq * LB];
-  uint32_t c1[kNq * LB], c2[kNq * LB];
-  for (int q = 0; q < nq; ++q) {
-    const bool has = q == 0 || c >= 0;
-    const uint32_t base = row_base[q] + (q == 0 ? s : pred);
-    for (int j = 0; j < L; ++j) {
-      const int i = q * L + j;
-      cs[i] = -INFINITY;
-      c1[i] = c2[i] = 0;
-      if (has) {
-        const uint32_t at = base + j * C;
-        cs[i] = __ldg(q_sc + at) + row_tr[q];
-        c1[i] = __ldg(q_h1 + at);
-        c2[i] = __ldg(q_h2 + at);
-        if (q != 0) {
-          c1[i] = hash_update(c1[i], shift, nb, kP1);
-          c2[i] = hash_update(c2[i], shift, nb, kP2);
-        }
-      }
+// The live members of the class (a, b) among a lane's N candidates, bit i
+// for candidate i: one byte of bits at a time, each its own chain of eight.
+// The scores are cs in registers, the hashes the pairs wh in this thread's
+// row of shared memory.
+template <int N, int A, int AW>
+__device__ __forceinline__ uint32_t member_mask(const float (&cs)[A],
+                                                const uint2 (&wh)[AW],
+                                                uint32_t a, uint32_t b) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int i0 = 0; i0 < N; i0 += 8) {
+    uint32_t r8 = 0;
+#pragma unroll
+    for (int i = i0; i < i0 + 8 && i < N; ++i) {
+      const uint2 h = wh[i];
+      const bool member = h.x == a && cs[i] > -INFINITY && h.y == b;
+      r8 |= member ? 1u << (i - i0) : 0u;
     }
+    m |= r8 << i0;
   }
-
-  bool left = true;  // some candidate is finite
-  for (int r = 0; r < L; ++r) {
-    float best = -INFINITY;
-    int bi = -1;
-    if (left) {
-      for (int i = 0; i < n; ++i) {
-        if (cs[i] > best) {
-          best = cs[i];
-          bi = i;
-        }
-      }
-      left = bi >= 0;
-    }
-    float val = -INFINITY;
-    uint32_t a = 0, bb = 0;
-    int code = -1;
-    if (left) {
-      a = c1[bi];
-      bb = c2[bi];
-      float sum = 0.0f;
-      for (int i = 0; i < n; ++i) {
-        if (c1[i] == a && c2[i] == bb) {
-          if (cs[i] > -INFINITY)
-            sum += static_cast<float>(
-                ::exp(static_cast<double>(cs[i] - best)));
-          cs[i] = -INFINITY;
-        }
-      }
-      val = best + static_cast<float>(::log(static_cast<double>(sum)));
-      code = (bi / L) * sel_shift + bi % L;
-    }
-    s_sc[row + r * sC] = val;
-    s_h1[row + r * sC] = a;
-    s_h2[row + r * sC] = bb;
-    out_sel[r * sC] = SelT(code);
-  }
+  return m;
 }
 
-template <int LB, typename SelT>
+// The L <= LB merge (LB = 16 or 64) of one destination over its G adjacent
+// lanes; this is lane l of the destination at tile column t. The nq <= NQ
+// candidate rows (8 for a flip, 2 for a flop) are laid out at padded index
+// q * LB + slot, slots past L -inf, and lane l holds the N = NQ * LB / G
+// of them at [l * N, (l + 1) * N), so ascending lanes hold ascending flat
+// indices q * L + slot: their scores in cs (registers), their (h1, h2)
+// pairs in wh, the thread's row of shared memory, which the class pass
+// reads at compile-time indices and the winner's owner at a run-time one.
+// Row q reads the plane of position pos - 1 from row_base[q] + (q == 0 ? s
+// : pred) (the stay row's base points into the next plane) and adds
+// row_tr[q]. Writes the popped rounds into the block's staging arrays st
+// and their count into st.n[t] (-1 for a destination that is not live).
+// Every lane of the warp calls it.
+template <int NQ, int LB, int G, typename SelT, int A, int AW>
+__device__ __forceinline__ void merge_lanes(
+    float (&cs)[A], uint2 (&wh)[AW],
+    const float* __restrict__ q_sc, const uint32_t* __restrict__ q_h1,
+    const uint32_t* __restrict__ q_h2, const uint32_t* row_base,
+    const float* row_tr, int nq, int c, int s, uint32_t pred, int shift,
+    uint32_t nb, bool live, int l, int t, int L, int C, int sel_shift,
+    Staged<LB, kLaneBlock / G, SelT>& st) {
+  constexpr int N = NQ * LB / G;  // candidates a lane
+  static_assert(N >= 1 && N <= 32 && N <= A && N <= AW,
+                "a lane's mask is 32 bits");
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int p = l * N + i;
+    const int q = p / LB, j = p % LB;
+    float x = -INFINITY;
+    uint32_t x1 = 0, x2 = 0;
+    if (live && q < nq && (q == 0 || c >= 0) && j < L) {
+      const uint32_t at = row_base[q] + (q == 0 ? s : pred) + j * C;
+      x = __ldg(q_sc + at) + row_tr[q];
+      x1 = __ldg(q_h1 + at);
+      x2 = __ldg(q_h2 + at);
+      if (q != 0) {
+        x1 = hash_update(x1, shift, nb, kP1);
+        x2 = hash_update(x2, shift, nb, kP2);
+      }
+    }
+    cs[i] = x;
+    wh[i] = make_uint2(x1, x2);
+  }
+  // this group's lanes in the warp's ballots, shifted down to bit 0
+  const int first = (threadIdx.x & 31) & ~(G - 1);
+  const unsigned lanes = G == 32 ? kFull : (1u << G) - 1;
+  int popped = 0;  // rounds popped, the same in every lane of the group
+#pragma unroll 1
+  for (int r = 0; r < L; ++r) {
+    // the lane's best (a tree), then the group's
+    float best;
+    int k;
+    tree_max<0, N>(cs, best, k);
+    k += l * N;
+    // the lowest index of the maximum, in every lane of the group
+    group_best<G, G>(best, k);
+    const bool pop = best > -INFINITY;
+    // once nothing is left, every later round pops nothing too
+    if (!__any_sync(kFull, pop)) break;
+    const int owner = k / N, kk = k % N;
+    const uint2 wk = wh[kk];
+    const uint32_t a = __shfl_sync(kFull, wk.x, owner, G);
+    const uint32_t bb = __shfl_sync(kFull, wk.y, owner, G);
+    const uint32_t mm = member_mask<N>(cs, wh, a, bb);
+    const uint32_t own = l == owner ? 1u << kk : 0u;
+    const uint32_t other = mm & ~own;
+    // the term of the lane's first member other than the winner, in
+    // parallel over the lanes; the winner's own term is exp(0.0) = 1.0
+    int i1 = -1;
+    float t1 = 0.0f;
+    if (other) {
+      i1 = __ffs(other) - 1;
+      t1 = static_cast<float>(
+          ::exp(static_cast<double>(pick<0, N>(cs, i1) - best)));
+    }
+    const unsigned extra = (__ballot_sync(kFull, other != 0) >> first) & lanes;
+    unsigned todo = (__ballot_sync(kFull, mm != 0) >> first) & lanes;
+    // a class of the winner alone sums to 1.0 exactly; otherwise the sum
+    // runs from 0.0f through the member lanes in ascending order, each
+    // adding its terms in ascending index onto the sum of the lanes before
+    float sum = 1.0f;
+    if (extra) {
+      sum = 0.0f;
+    } else {
+      todo = 0;
+    }
+    while (__any_sync(kFull, todo != 0)) {
+      const int j = todo ? __ffs(todo) - 1 : 0;
+      if (todo && l == j) {
+        for (uint32_t rest = mm; rest; rest &= rest - 1) {
+          const int i = __ffs(rest) - 1;
+          const float term =
+              (own >> i) & 1u ? 1.0f
+              : i == i1       ? t1
+                              : static_cast<float>(::exp(static_cast<double>(
+                                    pick<0, N>(cs, i) - best)));
+          sum += term;
+        }
+      }
+      sum = __shfl_sync(kFull, sum, j, G);
+      todo &= todo - 1;
+    }
+    // log(1.0) is 0.0: the lone winner's output is best + 0.0f
+    const float val =
+        best + (extra ? static_cast<float>(::log(static_cast<double>(sum)))
+                      : 0.0f);
+#pragma unroll
+    for (int i = 0; i < N; ++i) cs[i] = (mm >> i) & 1u ? -INFINITY : cs[i];
+    if (pop && l == 0) {
+      st.sc[r][t] = val;
+      st.h1[r][t] = a;
+      st.h2[r][t] = bb;
+      st.sel[r][t] = SelT((k / LB) * sel_shift + k % LB);
+    }
+    popped += pop;
+  }
+  if (l == 0) st.n[t] = live ? popped : -1;
+}
+
+// The L <= 8 bucket: one thread a destination.
+template <typename SelT>
 __global__ void __launch_bounds__(kBlock) lva_lse_kernel(
     const float* __restrict__ p_sc, const uint32_t* __restrict__ p_h1,
     const uint32_t* __restrict__ p_h2, float* __restrict__ s_sc,
@@ -321,25 +412,10 @@ __global__ void __launch_bounds__(kBlock) lva_lse_kernel(
   const size_t sC = static_cast<size_t>(C);
   const size_t LC = static_cast<size_t>(L) * sC;
 
-  // the row table of this block's (read, window row, f): row q's offset in
-  // the plane of position pos - 1 (less the conv state) and its transition
-  // score; the stay row lies in the next plane, at position pos
   __shared__ uint32_t row_base[kNq];
   __shared__ float row_tr[kNq];
   __shared__ int row_count;
-  for (int q = threadIdx.x; q < kNq; q += blockDim.x) {
-    const int g = q == 0 ? f : qmap[f * kNq + q];
-    row_base[q] = static_cast<uint32_t>((q == 0 ? kNcrf + f : g < 0 ? 0 : g) *
-                                        LC);
-    row_tr[q] = q == 0 ? stay_tr[b * kNcrf + f]
-                : g < 0 ? 0.0f
-                        : move_tr[(b * kNcrf + f) * kNcrf + g];
-  }
-  if (threadIdx.x == 0) {
-    int n = 1;
-    while (n < kNq && qmap[f * kNq + n] >= 0) ++n;
-    row_count = n;
-  }
+  row_table(stay_tr, move_tr, qmap, b, f, LC, row_base, row_tr, row_count);
   __syncthreads();
 
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
@@ -384,21 +460,96 @@ __global__ void __launch_bounds__(kBlock) lva_lse_kernel(
   const uint32_t* __restrict__ q_h1 = p_h1 + plane;
   const uint32_t* __restrict__ q_h2 = p_h2 + plane;
   const int nq = row_count;
-  if constexpr (LB <= kLr) {
-    // every thread of a block has the same f, so the branch is uniform
-    if (nq == 2)
-      merge_regs<2, SelT>(q_sc, q_h1, q_h2, s_sc, s_h1, s_h2, out_sel,
+  // every thread of a block has the same f, so the branch is uniform
+  if (nq == 2)
+    merge_regs<2, SelT>(q_sc, q_h1, q_h2, s_sc, s_h1, s_h2, out_sel,
+                        row_base, row_tr, nq, c, s, pred, shift, nb, row, sC,
+                        L, C, sel_shift);
+  else
+    merge_regs<kNq, SelT>(q_sc, q_h1, q_h2, s_sc, s_h1, s_h2, out_sel,
                           row_base, row_tr, nq, c, s, pred, shift, nb, row,
                           sC, L, C, sel_shift);
-    else
-      merge_regs<kNq, SelT>(q_sc, q_h1, q_h2, s_sc, s_h1, s_h2, out_sel,
-                            row_base, row_tr, nq, c, s, pred, shift, nb, row,
-                            sC, L, C, sel_shift);
+}
+
+// The L <= LB bucket for LB = 16 and 64: G lanes a destination, a block of
+// kLaneBlock threads on kLaneBlock / G neighbouring conv states of one
+// (read, window row, f). Arguments as lva_lse_kernel's.
+template <int LB, int G, typename SelT>
+__global__ void __launch_bounds__(kLaneBlock) lva_lse_lanes_kernel(
+    const float* __restrict__ p_sc, const uint32_t* __restrict__ p_h1,
+    const uint32_t* __restrict__ p_h2, float* __restrict__ s_sc,
+    uint32_t* __restrict__ s_h1, uint32_t* __restrict__ s_h2,
+    void* __restrict__ sel_out, const float* __restrict__ stay_tr,
+    const float* __restrict__ move_tr, const int32_t* __restrict__ start1,
+    const uint8_t* __restrict__ active, const int32_t* __restrict__ cstar,
+    const int32_t* __restrict__ nbits, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ pattern, const int32_t* __restrict__ qmap,
+    int P, int L, int C, int W, int sel_shift) {
+  constexpr int T = kLaneBlock / G;  // destinations (conv states) a block
+  constexpr int NF = kNq * LB / G;   // a flip lane's candidates
+  const int w = blockIdx.y / kNcrf;
+  const int f = blockIdx.y % kNcrf;
+  const int b = blockIdx.z;
+  const size_t sC = static_cast<size_t>(C);
+  const size_t LC = static_cast<size_t>(L) * sC;
+
+  __shared__ uint32_t row_base[kNq];
+  __shared__ float row_tr[kNq];
+  __shared__ int row_count;
+  // the popped rounds of the block's T destinations, and their counts
+  __shared__ Staged<LB, T, SelT> st;
+  row_table(stay_tr, move_tr, qmap, b, f, LC, row_base, row_tr, row_count);
+  __syncthreads();
+
+  const int s0 = blockIdx.x * T;
+  const int pos = start1[b] + w;
+  const Tile<T, kLaneBlock, SelT> tile{
+      L, C - s0 < T ? C - s0 : T, s0, sC,
+      // slot 0 of conv state s0 of this row in the prev and the stale buffer
+      ((static_cast<size_t>(b) * P + pos) * kNcrf + f) * LC + s0,
+      static_cast<SelT*>(sel_out) +
+          ((static_cast<size_t>(b) * W + w) * kNcrf + f) * LC + s0};
+  if (tile.edge(active[b], pos, valid, p_sc, p_h1, p_h2, s_sc, s_h1, s_h2,
+                row_tr))
+    return;
+
+  const int l = threadIdx.x % G;  // this lane of its destination
+  const int t = threadIdx.x / G;  // its destination's tile column
+  const int s = s0 + t;
+  const bool live =
+      t < tile.cols && valid[static_cast<size_t>(pos) * sC + s];
+  // moves: the emitted base is f % 4, and at most one conv candidate c
+  // emits it; without one (c < 0) every move row is -inf
+  const int pat = pattern[pos];
+  const int kvar = pat != 0;
+  const int shift = 1 + kvar;
+  const uint32_t nb = live ? static_cast<uint32_t>(nbits[kvar * C + s]) : 0;
+  const int c = live ? cstar[(pat * 4 + (f & 3)) * C + s] : -1;
+  const uint32_t pred = static_cast<uint32_t>(((s << shift) + c) & (C - 1));
+  const size_t plane =
+      (static_cast<size_t>(b) * P + (pos - 1)) * kNcrf * LC;
+  const int nq = row_count;
+  // a thread's row of (h1, h2) pairs in shared memory, rows an odd number
+  // of pairs apart, so that a warp's accesses to one index fall in
+  // distinct banks
+  __shared__ uint2 m_h[kLaneBlock][NF + 1];
+  uint2(&wh)[NF + 1] = m_h[threadIdx.x];
+  // every thread of a block has the same f, so the branch is uniform
+  if (nq == 2) {
+    float cs[2 * LB / G];
+    merge_lanes<2, LB, G, SelT>(cs, wh, p_sc + plane, p_h1 + plane,
+                                p_h2 + plane, row_base, row_tr, nq, c, s,
+                                pred, shift, nb, live, l, t, L, C, sel_shift,
+                                st);
   } else {
-    merge_flat<LB, SelT>(q_sc, q_h1, q_h2, s_sc, s_h1, s_h2, out_sel,
-                         row_base, row_tr, nq, c, s, pred, shift, nb, row, sC,
-                         L, C, sel_shift);
+    float cs[NF];
+    merge_lanes<kNq, LB, G, SelT>(cs, wh, p_sc + plane, p_h1 + plane,
+                                  p_h2 + plane, row_base, row_tr, nq, c, s,
+                                  pred, shift, nb, live, l, t, L, C,
+                                  sel_shift, st);
   }
+  __syncthreads();
+  tile.write(st, s_sc, s_h1, s_h2);
 }
 
 using KernelFn = void (*)(const float*, const uint32_t*, const uint32_t*,
@@ -408,12 +559,22 @@ using KernelFn = void (*)(const float*, const uint32_t*, const uint32_t*,
                           const int32_t*, const int32_t*, int, int, int, int,
                           int);
 
-// The kernel of one list-size bucket: 8 and 16 with int8 selections, 64
-// with int16.
-KernelFn bucket(int L) {
-  return L <= 8    ? &lva_lse_kernel<8, int8_t>
-         : L <= 16 ? &lva_lse_kernel<16, int8_t>
-                   : &lva_lse_kernel<64, int16_t>;
+// A list-size bucket: its kernel, threads a block, lanes a destination
+// (so threads / lanes destinations, conv states, a block) and the
+// selection code's row stride.
+struct Bucket {
+  KernelFn kernel;
+  int threads, lanes, sel_shift;
+};
+
+// The bucket of list size L: 8 and 16 with int8 selections, 64 with int16.
+Bucket bucket(int L) {
+  if (L <= 8) return {&lva_lse_kernel<int8_t>, kBlock, 1, 16};
+  if (L <= 16)
+    return {&lva_lse_lanes_kernel<16, kLanes16, int8_t>, kLaneBlock,
+            kLanes16, 16};
+  return {&lva_lse_lanes_kernel<64, kLanes64, int16_t>, kLaneBlock, kLanes64,
+          64};
 }
 
 }  // namespace
@@ -429,9 +590,12 @@ extern "C" int lva_lse_launch(
     void* stream) {
   if (L < 1 || L > 64 || C < 1 || B < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = C < kBlock ? C : kBlock;
-  const dim3 grid((C + threads - 1) / threads, W * kNcrf, B);
-  bucket(L)<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const Bucket k = bucket(L);
+  // a one-thread bucket's block shrinks to C threads at small C
+  const int threads = k.lanes == 1 && C < k.threads ? C : k.threads;
+  const int per_block = threads / k.lanes;
+  const dim3 grid((C + per_block - 1) / per_block, W * kNcrf, B);
+  k.kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p_sc), static_cast<const uint32_t*>(p_h1),
       static_cast<const uint32_t*>(p_h2), static_cast<float*>(s_sc),
       static_cast<uint32_t*>(s_h1), static_cast<uint32_t*>(s_h2), sel,
@@ -439,24 +603,25 @@ extern "C" int lva_lse_launch(
       static_cast<const int32_t*>(start1), static_cast<const uint8_t*>(active),
       static_cast<const int32_t*>(cstar), static_cast<const int32_t*>(nbits),
       static_cast<const uint8_t*>(valid), static_cast<const int32_t*>(pattern),
-      static_cast<const int32_t*>(qmap), P, L, C, W, L <= 16 ? 16 : 64);
+      static_cast<const int32_t*>(qmap), P, L, C, W, k.sel_shift);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The registers, local memory (stack and spills, bytes) and resident threads
-// per SM (the occupancy calculator, blocks of 128) of the kernel that runs
-// list size L, into out[0..2].
+// per SM (the occupancy calculator, at the bucket's block size) of the
+// kernel that runs list size L, into out[0..2].
 extern "C" int lva_lse_info(int L, int* out) {
   if (L < 1 || L > 64) return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn k = bucket(L);
+  const Bucket k = bucket(L);
   cudaFuncAttributes at{};
-  cudaError_t e = cudaFuncGetAttributes(&at, k);
+  cudaError_t e = cudaFuncGetAttributes(&at, k.kernel);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kBlock, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k.kernel,
+                                                      k.threads, 0);
   out[0] = at.numRegs;
   out[1] = static_cast<int>(at.localSizeBytes);
-  out[2] = blocks * kBlock;
+  out[2] = blocks * k.threads;
   return static_cast<int>(e);
 }
 

@@ -5,8 +5,9 @@ The sources in ``csrc/`` have a plain C interface, so one ``nvcc`` call per
 library builds them in seconds without PyTorch's headers. The output goes to
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
 or, for an installed package, to ``~/.cache/nanopore_dna_storage_tpu_torch/
-kernels``. Libraries are named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads the library already built.
+kernels``. Libraries are named by a hash of the sources, the headers in
+``csrc/`` and the flags, so an edited source or header rebuilds and an
+unchanged one loads the library already built.
 """
 from __future__ import annotations
 
@@ -54,13 +55,14 @@ def nvcc() -> str:
 
 
 def compiled(compiler: str, flags, paths, out_dir: pathlib.Path,
-             stem: str) -> pathlib.Path:
+             stem: str, headers=()) -> pathlib.Path:
     """``paths`` compiled by ``compiler`` with ``flags`` (which end in
-    ``-shared``) into ``out_dir/<stem>-<hash>.so``, the hash of the flags
-    and the sources, unless it is there; the compiler's output is kept
-    beside it as ``.log``. Raises RuntimeError if the compiler fails."""
+    ``-shared``) into ``out_dir/<stem>-<hash>.so``, the hash of the flags,
+    the sources and the ``headers`` they include, unless it is there; the
+    compiler's output is kept beside it as ``.log``. Raises RuntimeError
+    if the compiler fails."""
     digest = hashlib.sha256(" ".join(flags).encode())
-    for p in paths:
+    for p in [*paths, *headers]:
         digest.update(p.read_bytes())
     out = out_dir / f"{stem}-{digest.hexdigest()[:16]}.so"
     if out.exists():
@@ -85,9 +87,10 @@ def compiled(compiler: str, flags, paths, out_dir: pathlib.Path,
 
 def build(name: str, sources) -> pathlib.Path:
     """Compile ``sources`` (names in ``csrc/``) into ``lib<name>-<hash>.so``
-    with nvcc; the compiler's output is kept beside it as ``.log``."""
+    with nvcc, the headers of ``csrc/`` in the hash; the compiler's output
+    is kept beside it as ``.log``."""
     return compiled(nvcc(), NVCC_FLAGS, [CSRC / s for s in sources],
-                    BUILD_DIR, f"lib{name}")
+                    BUILD_DIR, f"lib{name}", sorted(CSRC.glob("*.cuh")))
 
 
 def check_tensor(name, t, dtype, shape, device) -> None:

@@ -14,10 +14,11 @@ same function in plain PyTorch on CPU tensors:
   in slot. Every buffer of a max decode holds it.
 * logsumexp combining (the Pallas kernel's branch at
   ``lva_pallas.py:614-646``): ``acs_block_lse`` launches ``csrc/lva_lse.cu``,
-  a flat merge over every candidate; ``acs_block_lse_ref`` is its plain
-  version. It has no precondition on the rows, and its outputs are not
-  sorted in slot (a class of several members can outscore the one popped
-  before it), so the K-way kernel must never read its buffers.
+  a merge over every candidate (one thread a destination at L <= 8, a
+  group of lanes of a warp a destination above); ``acs_block_lse_ref`` is
+  its plain version. It has no precondition on the rows, and its outputs
+  are not sorted in slot (a class of several members can outscore the one
+  popped before it), so the K-way kernel must never read its buffers.
 
 Semantics, for every read b, window row w (padded position
 ``pos = start1[b] + w``), CRF destination f and conv state s:

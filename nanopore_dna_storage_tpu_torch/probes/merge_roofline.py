@@ -21,7 +21,10 @@ reads the kernel's time against ``pipe_floor``: its SASS instructions
 block step's work in the element-op unit: as ``bench.py`` counted it, as a
 flat scan over every candidate executes it, and as the K-way merge needs
 it; ``acs_needed_bytes`` counts the bytes the K-way merge must move, and
-``acs_lse_needed`` the operations and exp/log calls of a logsumexp step.
+``acs_lse_grouped_needed`` and ``acs_lse_needed`` the operations and
+exp/log calls of a logsumexp step as a grouping merge needs them and as the
+flat merge of ``csrc/lva_lse.cu`` runs them, which ``lse_bound`` turns into
+that step's bound and a second, flat yardstick.
 With ``--write`` the result goes to ``docs/GPU_ROOFLINE.json``.
 
     python -m nanopore_dna_storage_tpu_torch.probes.merge_roofline \\
@@ -63,6 +66,9 @@ FP32_LANES_PER_SM = 128
 # H100 SXM device memory rate, NVIDIA's data sheet (700 W): the bytes
 # bounds of the ACS step (``acs_needed_bytes``) are over it
 HBM_BYTES_PER_S = 3.35e12
+# special function units of one Hopper SM: transcendental results per clock
+# (exp, log), against its 128 FP32 lanes
+SFU_PER_SM = 16
 
 # the lanes a merge column is split over (csrc/probes.cu kMergeLanes); the
 # columns a stream thread runs, over 8 rounds unrolled (any other shape
@@ -528,6 +534,32 @@ def acs_needed_bytes(tabs, prev_sc, out_sc, sel, stay_tr, move_tr, start1,
     return nbytes
 
 
+def _lse_cells(tabs, prev, out, sel, stay_tr, move_tr, start1, active):
+    """Per active read of one logsumexp ACS block step: its live cells
+    (window row, conv state; position past 0 and state valid) [W, 1, C],
+    its candidates' class keys [W, 8f, C, 8q L] and finite flags, and the
+    live members of the class each round popped [L, W, 8f, C] (0 for a
+    round that popped nothing). Arguments as in ``acs_lse_needed``."""
+    L, C = prev[0].shape[3], prev[0].shape[4]
+    W = sel.shape[1]
+    for b in range(len(active)):
+        if not bool(active[b]):
+            continue
+        one = slice(b, b + 1)
+        pos, cand_sc, cand_key, _ = candidates(
+            tabs, tuple(x[one] for x in prev), stay_tr[one], move_tr[one],
+            start1[one], W)
+        live = ((tabs["valid"][pos[0]] != 0)
+                & (pos[0] != 1)[:, None])[:, None]  # [W, 1, C]
+        hit = sel[b].reshape(W, NCRF, L, C) >= 0
+        key = (out[1][b, pos[0]].long() << 30) | out[2][b, pos[0]]
+        finite = cand_sc[0] > NEG  # [W, 8f, C, 8q L]
+        members = torch.stack([
+            ((cand_key[0] == key[:, :, r, :, None]) & finite).sum(-1)
+            * hit[:, :, r] for r in range(L)])
+        yield live, cand_key[0], finite, members
+
+
 def acs_lse_needed(tabs, prev, out, sel, stay_tr, move_tr, start1,
                    active):
     """(operations, exp calls, log calls) one logsumexp ACS block step needs
@@ -546,33 +578,69 @@ def acs_lse_needed(tabs, prev, out, sel, stay_tr, move_tr, start1,
     per popped class. ``prev``: the step's previous buffers; ``out``: its
     output buffers (the stale buffers after the step); ``sel`` its
     selections; the rest as in ``acs_block``."""
-    B, P, _, L, C = prev[0].shape
-    W = sel.shape[1]
-    dev = prev[0].device
-    rows = 1 + (tabs["qmap"][:, 1:] >= 0).sum(1).to(dev)  # [8f]
+    L = prev[0].shape[3]
+    rows = 1 + (tabs["qmap"][:, 1:] >= 0).sum(1).to(prev[0].device)  # [8f]
     n = (rows * L)[:, None]  # [8f, 1]
     ops = exp = log = 0
-    for b in range(B):
-        if not bool(active[b]):
-            continue
-        one = slice(b, b + 1)
-        pos, cand_sc, cand_key, _ = candidates(
-            tabs, tuple(x[one] for x in prev), stay_tr[one], move_tr[one],
-            start1[one], W)
-        live = ((tabs["valid"][pos[0]] != 0)
-                & (pos[0] != 1)[:, None])[:, None]  # [W, 1, C]
-        hit = sel[b].reshape(W, NCRF, L, C) >= 0
-        h = hit.sum(2)  # [W, 8f, C]
-        key = (out[1][b, pos[0]].long() << 30) | out[2][b, pos[0]]
-        finite = cand_sc[0] > NEG  # [W, 8f, C, 8q L]
-        members = sum(((cand_key[0] == key[:, :, r, :, None]) & finite).sum(-1)
-                      * hit[:, :, r] for r in range(L))
+    for live, _, _, by_round in _lse_cells(tabs, prev, out, sel, stay_tr,
+                                           move_tr, start1, active):
+        h = (by_round > 0).sum(0)  # [W, 8f, C]
+        members = by_round.sum(0)
         cell = (n + 22 * (rows[:, None] - 1) * L + 3 * n
                 * torch.clamp(h + 1, max=L) + 4 * n * h + 4 * L
                 + 2 * members + h)
         ops += int(torch.where(live, cell, 0).sum())
         exp += int(torch.where(live, members, 0).sum())
         log += int(torch.where(live, h, 0).sum())
+    return ops, exp, log
+
+
+def _log2_ceil(x: torch.Tensor) -> torch.Tensor:
+    return torch.ceil(torch.log2(x.clamp(min=1).double())).long()
+
+
+def acs_lse_grouped_needed(tabs, prev, out, sel, stay_tr, move_tr, start1,
+                           active):
+    """(operations, exp calls, log calls) one logsumexp ACS block step needs
+    on these inputs when it groups the candidates by class, in the unit of
+    ``acs_work_ops``: the least the function needs, where
+    ``acs_lse_needed`` counts the flat merge over every candidate.
+
+    A class's members stay live until the class is popped, so the rounds
+    pop the classes in the order of their best members (the higher score,
+    the lower flat index on a tie) and each round sums its whole class.
+    One grouping gives the same output: sort a cell's finite candidates by
+    (h1, h2), the flat index breaking ties, take each class's best, order
+    the classes by it and sum the first L in index order. Per live cell
+    with n candidates, ``nf`` of them finite in ``K`` classes, ``h`` rounds
+    that pop a class and ``M`` members in the popped classes: n score adds
+    and ``22 (rows[f] - 1) L`` for the move rows' hashes (as
+    ``acs_lse_needed``), ``3 nf ceil(log2 nf)`` for the sort (two key
+    compares and a select a candidate and level), ``nf`` for the classes'
+    best, ``3 K ceil(log2 K)`` for their order, ``2 M + h`` for the sums
+    and the outputs' adds and 4 ops per output slot. One exp per member
+    other than its class's best, one log per popped class of more than one
+    member. Arguments as in ``acs_lse_needed``."""
+    L = prev[0].shape[3]
+    rows = 1 + (tabs["qmap"][:, 1:] >= 0).sum(1).to(prev[0].device)  # [8f]
+    n = (rows * L)[:, None]  # [8f, 1]
+    ops = exp = log = 0
+    for live, key, finite, by_round in _lse_cells(tabs, prev, out, sel,
+                                                  stay_tr, move_tr, start1,
+                                                  active):
+        h = (by_round > 0).sum(0)  # [W, 8f, C]
+        members = by_round.sum(0)
+        nf = finite.sum(-1)
+        k = torch.where(finite, key, -1).sort(-1).values
+        new = torch.ones_like(finite)
+        new[..., 1:] = k[..., 1:] != k[..., :-1]
+        classes = (new & (k >= 0)).sum(-1)
+        cell = (n + 22 * (rows[:, None] - 1) * L + 3 * nf * _log2_ceil(nf)
+                + nf + 3 * classes * _log2_ceil(classes) + 2 * members + h
+                + 4 * L)
+        ops += int(torch.where(live, cell, 0).sum())
+        exp += int(torch.where(live, members - h, 0).sum())
+        log += int(torch.where(live, (by_round > 1).sum(0), 0).sum())
     return ops, exp, log
 
 
@@ -592,6 +660,47 @@ def lane_peak(device: int = 0):
     sms, lanes, mhz = _peak_parts(device)
     return (sms * lanes * mhz * 1e6,
             f"{sms} SMs x {lanes} FP32 lanes x {mhz:g} MHz max SM clock")
+
+
+def lse_bound(spec, start1, active, needed, flat=None) -> dict:
+    """The bound of one logsumexp ACS block step of decode spec ``spec``
+    whose reads have window starts ``start1`` and flags ``active``: the
+    largest of the bytes the step must move (every slot of the W + 1
+    previous rows read, the W rows written and the selections:
+    ``bytes_every_slot``) over the memory rate, the operations ``needed``
+    (``acs_lse_grouped_needed``: the grouping merge, the least this step's
+    data needs) over the FP32 lane peak, and its exp and log calls over
+    the special function units' peak. ``needed`` and ``flat``: (operations,
+    exp calls, log calls) of the step; with ``flat`` (``acs_lse_needed``,
+    the flat merge the kernel runs) the same three terms on its counts
+    stand beside it as ``bound_flat_ms``, a second yardstick."""
+    L, C, W = spec.list_size, spec.code.nstate_conv, spec.window
+    cells = 8 * L * C
+    nbytes = sum(active) * (2 * W + 1) * cells * 12 + len(start1) * W * cells
+    peak, _ = lane_peak()
+    sfu = peak * SFU_PER_SM / FP32_LANES_PER_SM
+
+    def terms(counts):
+        ops, nexp, nlog = counts
+        times = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+                 "operations": 1e3 * ops / peak,
+                 "sfu": 1e3 * (nexp + nlog) / sfu}
+        return times, max(times, key=times.get)
+
+    times, by = terms(needed)
+    out = {"bytes": nbytes, "bytes_ms": times["bytes"], "ops": needed[0],
+           "ops_ms": times["operations"], "exp_calls": needed[1],
+           "log_calls": needed[2], "sfu_per_s": sfu, "sfu_ms": times["sfu"],
+           "bound_ms": times[by],
+           # the kernels line's unit: the SFU calls are operations
+           "bound_by": "bytes" if by == "bytes" else "operations",
+           "bound_term": by}
+    if flat is not None:
+        ftimes, fby = terms(flat)
+        out.update({"flat_ops": flat[0], "flat_ops_ms": ftimes["operations"],
+                    "flat_exp_calls": flat[1], "flat_log_calls": flat[2],
+                    "bound_flat_ms": ftimes[fby], "bound_flat_term": fby})
+    return out
 
 
 def run(kind: str, rounds: int, grid: int, floor_s: float,

@@ -21,13 +21,17 @@ some of the points below (``POINTS``; all by default).
 Points, each output held bit-equal to its plain version before it is
 timed:
 
-* the lse step (``acs_block_lse``) at the headline config (experiment 7,
-  L=8, max deviation 20) at B=1 and B=4: the first B forward reads of
-  ``--reads`` simulated from ``--seed`` decoded with ``path_combine=
-  "logsumexp"``, the step timed on the state of the block in the middle of
-  the shortest read, as ``profile_decode.py`` times K1: ``LAUNCHES``
-  launches by CUDA events, ``REPEATS`` times; with the kernel's registers,
-  local bytes and threads per SM at L = 8;
+* the lse step (``acs_block_lse``) at B=1 and B=4 in each cell of
+  ``--lse-at`` (an experiment and a list size at max deviation 20; by
+  default the headline, experiment 7 at L=8; ``7:12 0:64 0:16`` times the
+  L <= 16 bucket at m=11 and both lane buckets at experiment 0): the first
+  B forward reads of ``--reads`` simulated from ``--seed`` decoded with
+  ``path_combine="logsumexp"``, the step timed on the state of the block
+  in the middle of the shortest read, as ``profile_decode.py`` times K1:
+  ``LAUNCHES`` launches by CUDA events, ``REPEATS`` times; with the
+  kernel's registers, local bytes and threads per SM at each list size,
+  and, from a tree that has ``merge_roofline.acs_lse_grouped_needed``, the
+  timed step's bound (``lse_bound``, with the flat merge's beside it);
 * the reshape copy (``lowering.reshape``) at the script's [8, 8, 1024]
   from CUDA graphs (``graph_us``) and at ``RESHAPE_LARGE`` by CUDA events
   over ``REPS`` calls after ``WARMUP``, each beside ``clone`` of the same
@@ -78,10 +82,13 @@ def _events_ms(torch, fn, warmup: int, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def lse_points(torch, reads: int, seed: int, batches=(1, 4)) -> dict:
-    """The lse step's times (ms per block step) at each B of ``batches``,
-    after the kernel's output at the timed block is held bit-equal to
-    ``acs_block_lse_ref``."""
+def lse_points(torch, reads: int, seed: int, cells=((7, 8),),
+               batches=(1, 4)) -> dict:
+    """The lse step's times (ms per block step) in each cell (experiment,
+    list size) of ``cells`` at each B of ``batches``, after the kernel's
+    output at the timed block is held bit-equal to ``acs_block_lse_ref``;
+    the kernel's build at each list size, and, where the tree has
+    ``merge_roofline.acs_lse_grouped_needed``, each timed step's bound."""
     import numpy as np
 
     from nanopore_dna_storage_tpu_torch.config import (ConvCodeConfig,
@@ -93,52 +100,66 @@ def lse_points(torch, reads: int, seed: int, batches=(1, 4)) -> dict:
                                                          experiment)
     from nanopore_dna_storage_tpu_torch.pipeline.simulate import \
         simulate_posts
+    from nanopore_dna_storage_tpu_torch.probes import merge_roofline
 
-    exp = experiment(7)
-    data = np.random.default_rng(seed).integers(
-        0, 256, 100, dtype=np.uint8).tobytes()
-    enc = encode_bytes(data, exp)
-    posts, rcs, _ = simulate_posts(enc.oligos, reads,
-                                   np.random.default_rng(seed + 1))
-    fwd = [p for p, rc in zip(posts, rcs) if not rc]
-    if len(fwd) < max(batches):
-        raise SystemExit(f"turns: {len(fwd)} forward reads for a batch of "
-                         f"{max(batches)}: raise --reads")
-    dec = LVADecoder(DecodeConfig(
-        code=ConvCodeConfig(mem=exp.conv_mem, rate=exp.conv_rate,
-                            msg_len=exp.msg_len()),
-        list_size=8, max_deviation=20, path_combine="logsumexp"),
-        device="cuda")
     out = {}
-    for B in batches:
-        timed = min(map(len, fwd[:B])) // 2
-        ms, done = [], [0]
+    for e, L in cells:
+        exp = experiment(e)
+        data = np.random.default_rng(seed).integers(
+            0, 256, 100, dtype=np.uint8).tobytes()
+        enc = encode_bytes(data, exp)
+        posts, rcs, _ = simulate_posts(enc.oligos, reads,
+                                       np.random.default_rng(seed + 1))
+        fwd = [p for p, rc in zip(posts, rcs) if not rc]
+        if len(fwd) < max(batches):
+            raise SystemExit(f"turns: {len(fwd)} forward reads for a batch "
+                             f"of {max(batches)}: raise --reads")
+        dec = LVADecoder(DecodeConfig(
+            code=ConvCodeConfig(mem=exp.conv_mem, rate=exp.conv_rate,
+                                msg_len=exp.msg_len()),
+            list_size=L, max_deviation=20, path_combine="logsumexp"),
+            device="cuda")
+        cell = "lse" if (e, L) == (7, 8) else f"lse_e{e}_L{L}"
+        for B in batches:
+            timed = min(map(len, fwd[:B])) // 2
+            ms, done = [], [0]
 
-        def step(tabs, prev, stale, *args):
-            if done[0] == timed:
-                scratch = [x.clone() for x in stale]
-                want = [x.clone() for x in stale]
-                sel = torch.empty_like(args[-1])
-                want_sel = torch.empty_like(sel)
-                lva_acs.acs_block_lse(tabs, prev, scratch, *args[:-1], sel)
-                lva_acs.acs_block_lse_ref(tabs, prev, want, *args[:-1],
-                                          want_sel)
-                if not (all(torch.equal(x.view(torch.int32),
-                                        y.view(torch.int32))
-                            for x, y in zip(scratch, want))
-                        and torch.equal(sel, want_sel)):
-                    raise SystemExit(f"turns: the lse kernel differs from "
-                                     f"acs_block_lse_ref at B={B}")
-                ms.extend(_events_ms(torch, lambda: lva_acs.acs_block_lse(
-                    tabs, prev, scratch, *args[:-1], sel), 1, LAUNCHES)
-                    for _ in range(REPEATS))
-            done[0] += 1
-            return lva_acs.acs_block_lse(tabs, prev, stale, *args)
+            def step(tabs, prev, stale, *args):
+                if done[0] == timed:
+                    scratch = [x.clone() for x in stale]
+                    want = [x.clone() for x in stale]
+                    sel = torch.empty_like(args[-1])
+                    want_sel = torch.empty_like(sel)
+                    lva_acs.acs_block_lse(tabs, prev, scratch, *args[:-1],
+                                          sel)
+                    lva_acs.acs_block_lse_ref(tabs, prev, want, *args[:-1],
+                                              want_sel)
+                    if not (all(torch.equal(x.view(torch.int32),
+                                            y.view(torch.int32))
+                                for x, y in zip(scratch, want))
+                            and torch.equal(sel, want_sel)):
+                        raise SystemExit(f"turns: the lse kernel differs "
+                                         f"from acs_block_lse_ref at {cell} "
+                                         f"B={B}")
+                    ms.extend(_events_ms(
+                        torch, lambda: lva_acs.acs_block_lse(
+                            tabs, prev, scratch, *args[:-1], sel), 1,
+                        LAUNCHES) for _ in range(REPEATS))
+                    if hasattr(merge_roofline, "acs_lse_grouped_needed"):
+                        counts = [count(tabs, prev, want, want_sel,
+                                        *args[:-1]) for count in
+                                  (merge_roofline.acs_lse_grouped_needed,
+                                   merge_roofline.acs_lse_needed)]
+                        out[f"{cell}_B{B}_bound"] = merge_roofline.lse_bound(
+                            dec.spec, args[2].tolist(), args[3].tolist(),
+                            *counts)
+                done[0] += 1
+                return lva_acs.acs_block_lse(tabs, prev, stale, *args)
 
-        batch, nblks = pack_posts(fwd[:B])
-        dec.decode(batch, nblks, acs=step)
-        out[f"lse_B{B}_ms"] = ms
-    out["lse_L8"] = lva_acs.lse_kernel_info(8)
+            batch, nblks = pack_posts(fwd[:B])
+            dec.decode(batch, nblks, acs=step)
+            out[f"{cell}_B{B}_ms"] = ms
+        out[f"lse_L{L}"] = lva_acs.lse_kernel_info(L)
     return out
 
 
@@ -277,15 +298,16 @@ def fori_points(torch, seed: int) -> dict:
     return out
 
 
-def measure(reads: int, seed: int, points) -> dict:
-    """This process's tree: the times of ``points``, ms."""
+def measure(reads: int, seed: int, points, lse_at) -> dict:
+    """This process's tree: the times of ``points``, ms; the lse step at
+    the cells ``lse_at``."""
     import torch
 
     out = {"gpu": torch.cuda.get_device_name(0)}
     if "reshape" in points:
         out.update(reshape_points(torch))
     if "lse" in points:
-        out.update(lse_points(torch, reads, seed))
+        out.update(lse_points(torch, reads, seed, lse_at))
     if "probes" in points:
         out.update(probe_points(torch, seed))
     if "treepop" in points:
@@ -305,14 +327,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--points", nargs="+", choices=POINTS, default=POINTS,
                     help="the points timed (default all)")
+    ap.add_argument("--lse-at", nargs="+", default=["7:8"],
+                    metavar="EXPERIMENT:L",
+                    help="the lse point's cells, each an experiment and a "
+                         "list size (default 7:8, the headline)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    lse_at = [tuple(map(int, c.split(":"))) for c in args.lse_at]
     if args.child:
         import torch
         if not torch.cuda.is_available():
             raise SystemExit("turns: needs a CUDA device")
-        print(json.dumps(measure(args.reads, args.seed, args.points)),
-              flush=True)
+        print(json.dumps(measure(args.reads, args.seed, args.points,
+                                 lse_at)), flush=True)
         return 0
     rows = []
     for root in args.roots:
@@ -320,7 +347,8 @@ def main(argv=None) -> int:
         env = dict(os.environ, PYTHONPATH=str(root))
         res = subprocess.run([sys.executable, __file__, "--child",
                               "--reads", str(args.reads), "--seed",
-                              str(args.seed), "--points", *args.points],
+                              str(args.seed), "--points", *args.points,
+                              "--lse-at", *args.lse_at],
                              cwd=root, env=env, capture_output=True,
                              text=True, timeout=900)
         sys.stderr.write(res.stderr)
@@ -340,8 +368,9 @@ def main(argv=None) -> int:
                          if isinstance(v, list) else f"{v:.6f}")
         print(f"{k:30s} " + "  ".join(cells))
     if "lse" in args.points:
-        print(f"{'lse_L8':18s} " + "  ".join(json.dumps(r["lse_L8"])
-                                               for _, r in rows))
+        for L in dict.fromkeys(L for _, L in lse_at):
+            print(f"{f'lse_L{L}':18s} " + "  ".join(
+                json.dumps(r[f"lse_L{L}"]) for _, r in rows))
     if "probes" in args.points:
         from nanopore_dna_storage_tpu_torch.probes import merge_roofline
         for root, r in rows:

@@ -3,11 +3,14 @@ experiment.
 
     python -m nanopore_dna_storage_tpu_torch.profile_decode [--reads 24]
         [--experiment 7] [--list-size L] [--batches 1,2,4,8]
+        [--path-combine max|logsumexp]
 
 Simulates reads of ``--experiment`` (default 7, the headline config: m=11,
 r=5/6, msg_len 180) from ``--seed`` on a 100-byte file and decodes them at
 max deviation 20 and ``--list-size`` (default the experiment's published
-list size, ``DEFAULT_LIST_SIZE``: 64 at m=8, 8 at m=11, 4 at m=14). Every
+list size, ``DEFAULT_LIST_SIZE``: 64 at m=8, 8 at m=11, 4 at m=14) with
+``--path-combine`` (max, K1's K-way merge, by default; logsumexp, the lse
+kernel of ``csrc/lva_lse.cu``). Every
 read keeps its selections on the card for the whole decode (about 3.9 GB
 a read at m=8 L=64, 9 GB at m=14 L=4), so ``--batches`` is sized to the
 card's memory there (``1,4`` at experiment 0, ``1,2`` at experiment 8). It
@@ -16,7 +19,8 @@ prints:
 1. forward versus the rest of a decode (traceback, final ordering, the copy
    to the host): for each B of ``--batches``, two decodes of the first B
    forward-orientation reads, split where the last ACS launch finishes;
-2. the ACS kernel alone: ms per block step at B=1 and at the largest B, by
+2. the ACS kernel (K1 or the lse kernel) alone: ms per block step at B=1
+   and at the largest B, by
    CUDA events over ``--launches`` launches on the state of a block in the
    middle of the reads, three repeats;
 3. one ``PipelineDecoder.decode_posts`` of the first B simulated reads,
@@ -37,7 +41,7 @@ from .bench import trace_device
 from .config import ConvCodeConfig, DecodeConfig
 from .io.post import pack_posts
 from .ops.lva import LVADecoder
-from .ops.lva_acs import acs_block
+from .ops.lva_acs import acs_block, acs_block_lse
 from .pipeline import encode_bytes, experiment
 from .pipeline.experiments import DEFAULT_LIST_SIZE
 from .pipeline.decode import PipelineDecoder
@@ -58,11 +62,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 class Probe:
-    """ACS step that runs the kernel, notes when the forward's last launch
-    has finished, and times the kernel alone at block ``timed``."""
+    """ACS step that runs the kernel (``acs``: K1's ``acs_block`` by
+    default), notes when the forward's last launch has finished, and times
+    the kernel alone at block ``timed``."""
 
-    def __init__(self, nblocks: int, timed: int = -1, launches: int = 0):
+    def __init__(self, nblocks: int, timed: int = -1, launches: int = 0,
+                 acs=acs_block):
         self.nblocks, self.timed, self.launches = nblocks, timed, launches
+        self.acs = acs
         self.n = 0
         self.t_fwd = None
         self.ms = []
@@ -70,9 +77,9 @@ class Probe:
     def __call__(self, tabs, prev, stale, *args):
         if self.n == self.timed:
             scratch = [x.clone() for x in stale]
-            self.ms = [cuda_ms(lambda: acs_block(tabs, prev, scratch, *args),
+            self.ms = [cuda_ms(lambda: self.acs(tabs, prev, scratch, *args),
                                self.launches) for _ in range(3)]
-        acs_block(tabs, prev, stale, *args)
+        self.acs(tabs, prev, stale, *args)
         self.n += 1
         if self.n == self.nblocks:
             torch.cuda.synchronize()
@@ -92,6 +99,8 @@ def main(argv=None) -> int:
     ap.add_argument("--experiment", type=int, default=7)
     ap.add_argument("--list-size", type=int, default=None,
                     help="default: the experiment's published list size")
+    ap.add_argument("--path-combine", default="max",
+                    choices=("max", "logsumexp"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -116,14 +125,17 @@ def main(argv=None) -> int:
     dec = LVADecoder(DecodeConfig(
         code=ConvCodeConfig(mem=exp.conv_mem, rate=exp.conv_rate,
                             msg_len=exp.msg_len()),
-        list_size=L, max_deviation=20), device="cuda")
+        list_size=L, max_deviation=20, path_combine=args.path_combine),
+        device="cuda")
+    acs = acs_block_lse if dec.spec.combine_lse else acs_block
     print(f"experiment {args.experiment}: m={exp.conv_mem} r={exp.conv_rate} "
-          f"L={L} C={dec.spec.code.nstate_conv} W={dec.spec.window}; "
+          f"L={L} {args.path_combine} combining "
+          f"C={dec.spec.code.nstate_conv} W={dec.spec.window}; "
           f"forward reads {len(fwd)}: nblk {[len(p) for p in fwd]}")
 
     def decode(B, probe_args=()):
         batch, nblks = pack_posts(fwd[:B])
-        probe = Probe(int(nblks.max()), *probe_args)
+        probe = Probe(int(nblks.max()), *probe_args, acs=acs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dec.decode(batch, nblks, acs=probe)
@@ -146,7 +158,8 @@ def main(argv=None) -> int:
                   f"{probe.timed}")
 
     B = max(batches)
-    pdec = PipelineDecoder(exp, L, 20, device="cuda")
+    pdec = PipelineDecoder(exp, L, 20, path_combine=args.path_combine,
+                           device="cuda")
     num_oligos = enc.num_oligos_data + enc.num_oligos_rs
     pdec.decode_posts(posts[:B], rcs[:B], num_oligos)
     trace = trace_device(

@@ -7,9 +7,11 @@ between its two lse paths (tests/test_lva_traceback.py): XLA's exp, log and
 class-sum order are not the port's. Hashes, selections and messages are
 exact, since the pops compare raw candidate scores, which are one f32 add
 in the same order in both packages. The model repeats the kernel's loop
-(strict-> scan, class pass in ascending flat index, knockout) and must equal
-``acs_block_lse_ref`` bit for bit, on Pallas-derived states and on rows
-built to break it.
+at L <= 8 (tree pop, class pass over a member mask, knockout), and above it
+the flat loop whose order the lane buckets keep (strict-> scan, class pass
+in ascending flat index; their lane layout is modelled in
+tests/test_torch_lse_lanes.py), and must equal ``acs_block_lse_ref`` bit
+for bit, on Pallas-derived states and on rows built to break it.
 """
 import numpy as np
 import pytest
@@ -119,8 +121,9 @@ def thread_merge(cs, c1, c2, nrows, L, code_shift):
     laid out at q * 8 + slot in 2 rows (a flop) or 8, the slots past L and
     the absent rows -inf; each round a tree pop, the winner's hashes, the
     members as a uint64 mask, a loop over each lane's members in ascending
-    index (the winner's term 1.0), the knockout. Above, the flat bucket:
-    a strict-``>`` scan and a class pass in ascending flat index. Returns
+    index (the winner's term 1.0), the knockout. Above, the flat order
+    that the lane buckets keep: a strict-``>`` scan and a class pass in
+    ascending flat index. Returns
     the outputs (score, h1, h2, code), each [L, lanes], and per lane and
     round whether it popped and its member count (int arrays [L, lanes])."""
     lanes = cs.shape[1:]
@@ -303,8 +306,9 @@ def test_lse_model_on_pallas_states(rate, rc, block, active, dev):
     assert np.array_equal(sel[0].numpy(), want_sel)
 
 
-def _adversarial(L, seed):
-    """A logsumexp decode spec at m=6 r=5 with list size L, and a block
+def _adversarial(L, seed, max_deviation=6):
+    """A logsumexp decode spec at m=6 r=5 with list size L (and
+    ``max_deviation``, which sets the window), and a block
     step's inputs whose previous buffers are built to break a flat lse
     merge: scores in quarter steps from 0 to -3 in random slot order (ties
     within and across rows, rows unsorted), -inf at random slots (tied -inf),
@@ -315,7 +319,8 @@ def _adversarial(L, seed):
     rng = np.random.default_rng(seed)
     code = ConvCodeConfig(mem=6, rate=5, msg_len=30)
     spec, tabs_np = DecodeSpec.build(DecodeConfig(
-        code=code, list_size=L, max_deviation=6, path_combine=LSE))
+        code=code, list_size=L, max_deviation=max_deviation,
+        path_combine=LSE))
     tabs = LVAConsts.build(spec, tabs_np).to("cpu")
     B, P, C, W = 4, spec.npos_pad, spec.code.nstate_conv, spec.window
     sc = -rng.integers(0, 13, (B, P, NCRF, L, C)).astype(np.float32) / 4
@@ -430,15 +435,98 @@ def test_thread_merge_matches_merge_lse(kind, L):
 
 @pytest.mark.parametrize("L", [1, 2, 8])
 def test_lse_needed_counts_the_kernels_work(L):
-    """``acs_lse_needed``, which the lse kernel's bound on the card takes,
-    counts from the step's output the scans, class passes and exp and log
-    calls that the model of the kernel makes in its loop."""
+    """``acs_lse_needed``, the flat yardstick beside the lse kernel's bound
+    on the card, counts from the step's output the scans, class passes and
+    exp and log calls that the model of the kernel makes in its loop."""
     spec, tabs, prev, stale, args = _adversarial(L, seed=50 + L)
     sel, st, count = _same_as_lse_ref(tabs, prev, stale, args, spec.window)
     got = merge_roofline.acs_lse_needed(tabs, prev, st, sel, *args)
     assert got == (count["ops"], count["exp"], count["log"])
     # some lane ran out of classes: a scan found nothing
     assert count["scans"] > count["passes"] == count["log"]
+
+
+def group_merge(sc, key, L, code_shift):
+    """Numpy model of the grouping merge that ``acs_lse_grouped_needed``
+    counts, on one cell's candidates ``sc`` [n] (flat index q * L + slot)
+    and class keys ``key`` [n]: the finite candidates sorted by (key,
+    index), each class's best (the highest score, the lowest index on a
+    tie), the classes ordered by their best, and the first L summed in
+    index order. Returns the L outputs (score, key, code) and the counts
+    (nf, classes, h, members, classes of more than one member)."""
+    live = np.flatnonzero(sc > NEG)
+    order = live[np.lexsort((live, key[live]))]
+    classes = np.split(order, np.flatnonzero(np.diff(key[order])) + 1) \
+        if len(order) else []
+    best = [(-sc[c].max(), c[np.argmax(sc[c] == sc[c].max())], c)
+            for c in classes]
+    out_sc = np.full(L, NEG, np.float32)
+    out_key = np.zeros(L, np.int64)
+    code = np.full(L, -1, np.int64)
+    members = multi = 0
+    for r, (_, i, c) in enumerate(sorted(best, key=lambda x: x[:2])[:L]):
+        total = np.float32(0)
+        for j in c:  # ascending index
+            total = np.float32(total + np.float32(
+                np.exp(np.float64(np.float32(sc[j] - sc[i])))))
+        out_sc[r] = np.float32(sc[i] + np.float32(np.log(np.float64(total))))
+        out_key[r] = key[i]
+        code[r] = (i // L) * code_shift + i % L
+        members += len(c)
+        multi += len(c) > 1
+    h = min(len(classes), L)
+    return (out_sc, out_key, code), (len(live), len(classes), h, members,
+                                     multi)
+
+
+@pytest.mark.parametrize("L", [2, 5, 8])
+def test_lse_grouped_needed_counts_the_grouping_merge(L):
+    """The grouping merge that ``acs_lse_grouped_needed`` counts for the lse
+    kernel's bound gives the plain step's outputs bit for bit on every live
+    cell of an adversarial step, and that function's operations and exp and
+    log calls are those of the model's own tallies."""
+    spec, tabs, prev, stale, args = _adversarial(L, seed=70 + L)
+    W = spec.window
+    sel, st, _ = _same_as_lse_ref(tabs, prev, stale, args, W)
+    stay_tr, move_tr, start1, active = args
+    shift = sel_format(L)[1]
+    rows = [1 + int((tabs["qmap"][f, 1:] >= 0).sum()) for f in range(NCRF)]
+    ops = nexp = nlog = 0
+    lg = lambda x: int(np.ceil(np.log2(max(x, 1))))  # noqa: E731
+    for b in range(len(active)):
+        if not bool(active[b]):
+            continue
+        one = slice(b, b + 1)
+        pos, cand_sc, cand_key, _ = lva_acs.candidates(
+            tabs, tuple(x[one] for x in prev), stay_tr[one], move_tr[one],
+            start1[one], W)
+        pos = pos[0].numpy()
+        cs, ck = cand_sc[0].numpy(), cand_key[0].numpy()
+        out_sc = st[0][b].numpy()
+        out_key = (st[1][b].numpy().astype(np.int64) << 30) | st[2][b].numpy()
+        codes = sel[b].numpy().reshape(W, NCRF, L, -1)
+        valid = tabs["valid"].numpy()
+        for w, f, c in zip(*np.nonzero(np.ones(cs.shape[:3], bool))):
+            if pos[w] == 1 or not valid[pos[w], c]:
+                continue
+            (o_sc, o_key, code), (nf, k, h, m, multi) = group_merge(
+                cs[w, f, c], ck[w, f, c], L, shift)
+            assert np.array_equal(o_sc.view(np.int32),
+                                  out_sc[pos[w], f, :, c].view(np.int32))
+            assert np.array_equal(np.where(code >= 0, o_key, 0),
+                                  out_key[pos[w], f, :, c])
+            assert np.array_equal(code, codes[w, f, :, c])
+            n = rows[f] * L
+            ops += (n + 22 * (rows[f] - 1) * L + 3 * nf * lg(nf) + nf
+                    + 3 * k * lg(k) + 2 * m + h + 4 * L)
+            nexp += m - h
+            nlog += multi
+    got = merge_roofline.acs_lse_grouped_needed(tabs, prev, st, sel, *args)
+    assert got == (ops, nexp, nlog)
+    # classes of several members were summed, and the count is below the
+    # flat merge's
+    assert nlog > 0
+    assert ops < merge_roofline.acs_lse_needed(tabs, prev, st, sel, *args)[0]
 
 
 def test_lse_decode_matches_pallas():
