@@ -837,12 +837,12 @@ def phase_sim_decode(data: bytes, args, tag="phase 3"):
         argv = ["sim-decode", "-i", str(f), *args]
         log(f"{tag}: cli " + " ".join(args))
         torch.cuda.synchronize()
-        lva_acs.LAUNCHES = 0
+        k1_base = profiling.counter("acs.launches")
         t0 = time.perf_counter()
         rec, stats = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = lva_acs.LAUNCHES
+        launches = profiling.counter("acs.launches") - k1_base
     log(f"{tag}: {wall:.3f} s for {stats.num_reads} reads = "
         f"{wall / stats.num_reads:.4f} s/read; {launches} kernel launches "
         f"for {stats.steps} forward block steps")
@@ -1938,7 +1938,8 @@ def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
     rng = np.random.default_rng(SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lva_acs.LAUNCHES = lva_acs.LSE_LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
+    lse_base = profiling.counter("acs.lse_launches")
     t0 = time.perf_counter()
     pdec = PipelineDecoder(exp, 8, 20, path_combine=LSE, device="cuda")
     index, payload = [], []
@@ -1952,7 +1953,8 @@ def phase_lse(enc, exp, data: bytes, headline, post, gpu: str):
                            exp, len(data))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, kway = lva_acs.LSE_LAUNCHES, lva_acs.LAUNCHES
+    launches = profiling.counter("acs.lse_launches") - lse_base
+    kway = profiling.counter("acs.launches") - k1_base
     crc = int((np.concatenate(index) >= 0).sum())
     log(f"phase 7d: logsumexp path: {wall:.3f} s for {n_reads} reads = "
         f"{wall / n_reads:.4f} s/read; {crc} pass CRC; {launches} lse kernel "
@@ -2052,7 +2054,8 @@ def lse_path_cell(data: bytes, L: int, B: int, batch: int,
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lva_acs.LAUNCHES = lva_acs.LSE_LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
+    lse_base = profiling.counter("acs.lse_launches")
     t0 = time.perf_counter()
     pdec = PipelineDecoder(exp, L, 20, path_combine=LSE, device="cuda")
     index, payload, batch_s = [], [], []
@@ -2070,7 +2073,8 @@ def lse_path_cell(data: bytes, L: int, B: int, batch: int,
                            exp, len(data))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, kway = lva_acs.LSE_LAUNCHES, lva_acs.LAUNCHES
+    launches = profiling.counter("acs.lse_launches") - lse_base
+    kway = profiling.counter("acs.launches") - k1_base
     crc = int((np.concatenate(index) >= 0).sum())
     peak = torch.cuda.max_memory_allocated() / 2**30
     err = max(err, check.err)
@@ -2294,7 +2298,7 @@ def phase_basecall(enc, exp, gpu: str):
     pdec = PipelineDecoder(exp, 8, 20, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lva_acs.LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
     t0 = time.perf_counter()
     crc = 0
     for lo in range(0, CHAIN_READS, CHAIN_BATCH):
@@ -2303,7 +2307,8 @@ def phase_basecall(enc, exp, gpu: str):
         crc += int((out.index >= 0).sum())
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    launches, decode_peak = lva_acs.LAUNCHES, torch.cuda.max_memory_allocated()
+    launches = profiling.counter("acs.launches") - k1_base
+    decode_peak = torch.cuda.max_memory_allocated()
     log(f"phase 8c: decode_posts of the {CHAIN_READS} reads in batches of "
         f"{CHAIN_BATCH}: {decode_s:.3f} s, {launches} K1 launches for "
         f"{pdec.steps} block steps, {crc} pass CRC (random weights), peak "
@@ -2384,12 +2389,12 @@ def sharded_nccl(batch, nblks, exp, num_oligos: int, want):
         sd = ShardedDecoder(exp, 8, rc=False, max_deviation=20,
                             device="cuda:0")
         torch.cuda.synchronize()
-        lva_acs.LAUNCHES = 0
+        k1_base = profiling.counter("acs.launches")
         t0 = time.perf_counter()
         got = sd.decode(batch, nblks, num_oligos)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        n, steps = lva_acs.LAUNCHES, sd.inner.steps
+        n, steps = profiling.counter("acs.launches") - k1_base, sd.inner.steps
     finally:
         torch.distributed.destroy_process_group()
     if n == 0 or n != steps:
@@ -2482,12 +2487,13 @@ def phase_parallel(enc, exp, data: bytes, gpu: str):
     batch, nblks = pack_posts(fwd)
     sd = ShardedDecoder(exp, 8, rc=False, max_deviation=20, device="cuda")
     torch.cuda.synchronize()
-    lva_acs.LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
     t0 = time.perf_counter()
     res = sd.decode(batch, nblks, total)
     torch.cuda.synchronize()
     sharded_s = time.perf_counter() - t0
-    a_launches, a_steps = lva_acs.LAUNCHES, sd.inner.steps
+    a_launches = profiling.counter("acs.launches") - k1_base
+    a_steps = sd.inner.steps
     if a_launches == 0 or a_launches != a_steps:
         fail(f"phase 9a: {a_launches} K1 launches for {a_steps} block steps")
     launches += a_launches
@@ -2572,7 +2578,7 @@ def phase_parallel(enc, exp, data: bytes, gpu: str):
             fail("phase 9d: the jobs' orientations or CRC counts differ")
         pdec = PipelineDecoder(exp, 8, 20, device="cuda")
         torch.cuda.synchronize()
-        lva_acs.LAUNCHES = 0
+        k1_base = profiling.counter("acs.launches")
         t0 = time.perf_counter()
         crc, want = 0, {}
         for lo in range(0, len(posts), PARALLEL_BATCH):
@@ -2590,7 +2596,7 @@ def phase_parallel(enc, exp, data: bytes, gpu: str):
                          f"the in-process gated pick")
         torch.cuda.synchronize()
         inproc_s = time.perf_counter() - t0
-        d_launches = lva_acs.LAUNCHES
+        d_launches = profiling.counter("acs.launches") - k1_base
         if d_launches == 0 or d_launches != pdec.steps:
             fail(f"phase 9d: {d_launches} K1 launches for {pdec.steps} "
                  f"block steps")
@@ -2754,7 +2760,7 @@ def phase_real_data(enc, exp, data: bytes, gpu: str, exp_args):
     windows = {i: posts[i][located[i][1]:located[i][2] + 1] for i in ok}
     pdec = PipelineDecoder(exp, 8, 20, device="cuda")
     torch.cuda.synchronize()
-    lva_acs.LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
     t0 = time.perf_counter()
     want, crc = {}, 0
     for lo in range(0, len(ok), REAL_BATCH):
@@ -2766,7 +2772,7 @@ def phase_real_data(enc, exp, data: bytes, gpu: str, exp_args):
             want[f"list_{i}"] = list_text(out.msgs[j], out.valid[j])
     torch.cuda.synchronize()
     line["decode_s"] = time.perf_counter() - t0
-    ref_launches = lva_acs.LAUNCHES
+    ref_launches = profiling.counter("acs.launches") - k1_base
     if ref_launches != pdec.steps:
         fail(f"phase 10a: {ref_launches} K1 launches for {pdec.steps} block "
              f"steps in the in-process decode")
@@ -2785,14 +2791,14 @@ def phase_real_data(enc, exp, data: bytes, gpu: str, exp_args):
             if i in windows:
                 write_post(str(cut / f"read_{i:03d}.post"), windows[i])
         torch.cuda.synchronize()
-        lva_acs.LAUNCHES = 0
+        k1_base = profiling.counter("acs.launches")
         t0 = time.perf_counter()
         rec, steps = cli.main(["decode-posts", "--with-barcodes",
                                "--post-dir", str(whole), "--outdir",
                                str(tmp / "out_a"), *dec_args])
         torch.cuda.synchronize()
         line["cli_s"] = time.perf_counter() - t0
-        cli_launches = lva_acs.LAUNCHES
+        cli_launches = profiling.counter("acs.launches") - k1_base
         if cli_launches == 0 or cli_launches != steps or \
                 steps != pdec.steps:
             fail(f"phase 10a: decode-posts made {cli_launches} K1 launches "
@@ -2833,7 +2839,7 @@ def phase_real_data(enc, exp, data: bytes, gpu: str, exp_args):
         line["cli_b_s"] = time.perf_counter() - t0
         files = sorted(cut.glob("*.post"))
         torch.cuda.synchronize()
-        lva_acs.LAUNCHES = 0
+        k1_base = profiling.counter("acs.launches")
         t0 = time.perf_counter()
         want_b, rc_b = {}, []
         adec = PipelineDecoder(exp, 8, 20, device="cuda")
@@ -2847,7 +2853,7 @@ def phase_real_data(enc, exp, data: bytes, gpu: str, exp_args):
             rc_b += [f"rc={int(r)}" for r in use_rc]
         torch.cuda.synchronize()
         line["auto_orientation_s"] = time.perf_counter() - t0
-        b_launches = lva_acs.LAUNCHES
+        b_launches = profiling.counter("acs.launches") - k1_base
         if b_launches != adec.steps:
             fail(f"phase 10b: {b_launches} K1 launches for {adec.steps} "
                  f"block steps")
@@ -2880,7 +2886,7 @@ def phase_real_data(enc, exp, data: bytes, gpu: str, exp_args):
     torch.cuda.synchronize()
     raw_basecall_s = time.perf_counter() - t0
     rdec = PipelineDecoder(exp, 8, 20, device="cuda")
-    lva_acs.LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
     t0 = time.perf_counter()
     recs = decode_posts_with_barcodes(
         ids, [b.posterior for b in bcs], [b.sequence for b in bcs],
@@ -2888,7 +2894,7 @@ def phase_real_data(enc, exp, data: bytes, gpu: str, exp_args):
         batch=RAW_READS)
     torch.cuda.synchronize()
     raw_decode_s = time.perf_counter() - t0
-    c_launches = lva_acs.LAUNCHES
+    c_launches = profiling.counter("acs.launches") - k1_base
     if [r.read_id for r in recs] != ids or c_launches != rdec.steps:
         fail(f"phase 10c: {len(recs)} records for {RAW_READS} reads, "
              f"{c_launches} K1 launches for {rdec.steps} block steps")
@@ -3115,12 +3121,12 @@ def phase_train(enc, exp, gpu: str):
     launches = {}
 
     profiling.reset_timings()
-    lva_acs.LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
     stats, net = simulate_and_decode_signal(
         encode_bytes(data, fexp), fexp, num_reads=FIDELITY_READS,
         list_size=4, seed=3, max_deviation=16, train_steps=FIDELITY_STEPS,
         kmer=1, device="cuda")
-    launches["11b"] = lva_acs.LAUNCHES
+    launches["11b"] = profiling.counter("acs.launches") - k1_base
     secs = timed_sections()
     log(f"phase 11b: simulate_and_decode_signal(params=None): train "
         f"{FIDELITY_STEPS} steps {secs['train']:.3f} s "
@@ -3141,12 +3147,12 @@ def phase_train(enc, exp, gpu: str):
                    "stats": vars(stats), "k1_launches": launches["11b"]}
 
     profiling.reset_timings()
-    lva_acs.LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
     stats7, _ = simulate_and_decode_signal(
         enc, exp, num_reads=TRAINED_READS, params=net, list_size=8,
         seed=SEED, max_deviation=20, kmer=1, batch=TRAINED_BATCH,
         device="cuda")
-    launches["11c"] = lva_acs.LAUNCHES
+    launches["11c"] = profiling.counter("acs.launches") - k1_base
     secs = timed_sections()
     log(f"phase 11c: the trained basecaller on {TRAINED_READS} "
         f"experiment-7 reads: decode {secs['decode']:.3f} s; "
@@ -3161,12 +3167,12 @@ def phase_train(enc, exp, gpu: str):
     argv = ["simulate-signal", *SIGNAL_CLI_ARGS, "--seed", str(SEED),
             "--device", "cuda"]
     log("phase 11d: cli " + " ".join(argv[1:]))
-    lva_acs.LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
     t0 = time.perf_counter()
     rec, stats_d = cli.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches["11d"] = lva_acs.LAUNCHES
+    launches["11d"] = profiling.counter("acs.launches") - k1_base
     if list(rec) != SIGNAL_CLI_KEYS or rec["num_reads"] != 8:
         fail(f"phase 11d: simulate-signal printed {rec}")
     if launches["11d"] != stats_d.steps:
@@ -3296,12 +3302,12 @@ def phase_bench(gpu: str):
         argv = [*argv, "--verify"]
         buf = io.StringIO()
         torch.cuda.synchronize()
-        lva_acs.LAUNCHES = 0
+        k1_base = profiling.counter("acs.launches")
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = bench.main(argv)
         secs = time.perf_counter() - t0
-        run_launches = lva_acs.LAUNCHES
+        run_launches = profiling.counter("acs.launches") - k1_base
         out = buf.getvalue().splitlines()
         rec = json.loads(out[-1]) if out else {}
         log(f"phase 14: bench {' '.join(argv)}: exit {rc}, {secs:.1f} s, "
@@ -3329,12 +3335,12 @@ def report_part(tag: str, fn):
     the peak memory reset: (its result, seconds, K1 launches, peak GiB)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lva_acs.LAUNCHES = 0
+    k1_base = profiling.counter("acs.launches")
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = lva_acs.LAUNCHES
+    launches = profiling.counter("acs.launches") - k1_base
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"phase {tag}: {secs:.3f} s, {launches} K1 launches, peak "
         f"{peak:.3f} GiB")

@@ -74,6 +74,7 @@ from .ops.synthetic import synthetic_post
 from .parallel.mesh import ShardedDecoder
 from .pipeline.experiments import experiment
 from .probes.merge_roofline import HBM_BYTES_PER_S, acs_needed_bytes
+from .utils import profiling
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BASELINE_CACHE = ROOT / ".bench_baseline.json"
@@ -316,11 +317,23 @@ class NeededBytes:
         return sel
 
 
+def busy_seconds(intervals) -> float:
+    """Seconds covered by the union of [start, end] intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
 def trace_device(fn, top: int = 8) -> dict:
     """``fn()`` once under ``torch.profiler`` on a card: its wall seconds,
     the device seconds summed over the device's kernels and copies, the
-    device's idle share, and the ``top`` busiest device operations (name,
-    seconds, calls); ``ops`` holds every device operation's seconds."""
+    device's idle share (1 - the union of the device operations' intervals
+    over the wall, right on any number of streams), and the ``top``
+    busiest device operations (name, seconds, calls); ``ops`` holds every
+    device operation's seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -334,9 +347,13 @@ def trace_device(fn, top: int = 8) -> dict:
     on_dev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     dev_s = sum(e.self_device_time_total for e in on_dev) / 1e6
+    busy_s = busy_seconds(
+        (e.time_range.start / 1e6, e.time_range.end / 1e6)
+        for e in prof.events() if e.device_type == DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False))
     busiest = sorted(on_dev, key=lambda e: -e.self_device_time_total)
-    return {"wall_s": wall, "device_total_s": dev_s,
-            "idle_share": 1 - dev_s / wall,
+    return {"wall_s": wall, "device_total_s": dev_s, "busy_s": busy_s,
+            "idle_share": 1 - busy_s / wall,
             "top_ops": [{"name": e.key[:120],
                          "s": e.self_device_time_total / 1e6,
                          "calls": e.count} for e in busiest[:top]],
@@ -497,9 +514,9 @@ def run(args):
                 return out, None
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        launches, steps = lva_acs.LAUNCHES, inner.steps
+        launches, steps = profiling.counter("acs.launches"), inner.steps
         rps, timed = run_with_batch(dec, packed, nblks, n_reads, b, dev)
-        out.update(k1_launches=lva_acs.LAUNCHES - launches,
+        out.update(k1_launches=profiling.counter("acs.launches") - launches,
                    block_steps=inner.steps - steps)
         if dev.type == "cuda":
             out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30

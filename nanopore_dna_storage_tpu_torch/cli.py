@@ -23,7 +23,11 @@ scratch on the hermetic pore model, then decodes simulated raw-signal
 reads through it. ``decode-posts`` reads flappie's ``.post`` files, with
 ``--with-barcodes`` also the ``.fastq`` and ``.trans`` beside each, and
 writes the ``list_<i>`` files and ``info.txt`` of the reference's
-generate_decoded_lists.py, which the list commands read. The basecaller
+generate_decoded_lists.py, which the list commands read. ``sim-decode``
+and ``decode-posts`` add ``--trace-dir DIR``: the command runs under
+``utils/profiling.py`` ``profile(DIR)`` (a ``torch.profiler`` trace with
+the program's spans as ranges), and the spans' counts and seconds and the
+counters go to standard error as one JSON line. The basecaller
 chain itself is ported as a library (``pipeline/basecall.py``
 ``Basecaller``), as the reference has no basecall command either.
 """
@@ -47,6 +51,13 @@ def _add_exp_args(p: argparse.ArgumentParser):
     p.add_argument("--mem", type=int, default=11)
     p.add_argument("--rate", type=int, default=5)
     p.add_argument("--pad", action="store_true")
+
+
+def _add_trace_arg(p: argparse.ArgumentParser):
+    p.add_argument("--trace-dir",
+                   help="write a torch.profiler trace with the program's "
+                        "spans into this directory, and print the spans "
+                        "and counters to stderr")
 
 
 def _experiment(args):
@@ -465,6 +476,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "2.1 GB of selections on the device")
     p.add_argument("--device", default="cuda",
                    help="torch device of the decode (cuda or cpu)")
+    _add_trace_arg(p)
     p.set_defaults(fn=cmd_sim_decode)
 
     p = sub.add_parser("decode-posts")
@@ -481,6 +493,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "2.1 GB of selections on the device")
     p.add_argument("--device", default="cuda",
                    help="torch device of the decode (cuda or cpu)")
+    _add_trace_arg(p)
     p.set_defaults(fn=cmd_decode_posts)
 
     p = sub.add_parser("error-rate")
@@ -520,7 +533,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    trace_dir = getattr(args, "trace_dir", None)
+    if not trace_dir:
+        return args.fn(args)
+    from .utils import profiling
+
+    profiling.reset()
+    with profiling.profile(trace_dir):
+        out = args.fn(args)
+    snap = profiling.snapshot()
+    print(json.dumps({"spans": snap["spans"], "counters": snap["counters"]}),
+          file=sys.stderr)
+    return out
 
 
 if __name__ == "__main__":

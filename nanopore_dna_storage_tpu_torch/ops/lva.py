@@ -22,6 +22,7 @@ import torch
 
 from ..config import DecodeConfig
 from ..trellis import tables as tb
+from ..utils import profiling
 from . import lva_decode
 from .lva_acs import acs_block, acs_block_lse
 from .lva_consts import DecodeSpec, LVAConsts
@@ -71,7 +72,10 @@ class LVADecoder:
                       acs: Optional[Callable] = None):
         """Decode a batch and leave the result on the decoder's device
         (``PallasDecoder.decode_device``): the forward block loop, the
-        traceback and the ordering.
+        traceback and the ordering, each in a span of
+        ``utils/profiling.py`` (the forward and the traceback synchronised
+        at both ends in its sync mode), the block steps counted as
+        ``decoder.blocks``.
 
         Args:
           posts: [B, T, 5, 8] float32, zero-padded beyond each read's nblk.
@@ -102,27 +106,37 @@ class LVADecoder:
             raise ValueError("nblks exceeds the post matrix length")
         # blocks past every read's end are inactive for all: skip them
         T = int(nblks.max())
-        starts = self.schedule(nblks, T)
         spec, P, W = self.spec, self.spec.npos_pad, self.spec.window
-        if starts.min() < 0 or starts.max() + W >= P:
-            raise ValueError("beam schedule leaves the padded trellis")
-        tlo = np.zeros((B, P), np.int64)
-        thi = np.zeros((B, P), np.int64)
-        for b, n in enumerate(nblks):
-            tlo[b], thi[b] = lva_decode.window_bounds(starts[b], int(n), P, W)
+        with profiling.span("decoder.schedule"):
+            starts = self.schedule(nblks, T)
+            if starts.min() < 0 or starts.max() + W >= P:
+                raise ValueError("beam schedule leaves the padded trellis")
+            tlo = np.zeros((B, P), np.int64)
+            thi = np.zeros((B, P), np.int64)
+            for b, n in enumerate(nblks):
+                tlo[b], thi[b] = lva_decode.window_bounds(starts[b], int(n),
+                                                          P, W)
 
         dev = self.device
-        posts_d = torch.from_numpy(posts[:, :T]).to(dev)
-        starts_d = torch.from_numpy(starts).to(dev)
-        nblks_d = torch.from_numpy(nblks).to(dev)
-        sels, fin_sc = lva_decode.forward(spec, self.consts, self.tabs,
-                                          posts_d, starts_d, nblks_d, acs)
+        with profiling.span("decoder.copy_in"):
+            posts_d = torch.from_numpy(posts[:, :T]).to(dev)
+            starts_d = torch.from_numpy(starts).to(dev)
+            nblks_d = torch.from_numpy(nblks).to(dev)
+            tlo_d = torch.from_numpy(tlo).to(dev)
+            thi_d = torch.from_numpy(thi).to(dev)
+        profiling.count("decoder.blocks", T)
+        with profiling.span("decoder.forward", sync=True):
+            sels, fin_sc = lva_decode.forward(spec, self.consts, self.tabs,
+                                              posts_d, starts_d, nblks_d,
+                                              acs)
         self.steps += T
-        words, okend = lva_decode.traceback(
-            spec, self.consts, self.tabs, sels, starts_d.long(), nblks_d,
-            torch.from_numpy(tlo).to(dev), torch.from_numpy(thi).to(dev))
+        with profiling.span("decoder.traceback", sync=True):
+            words, okend = lva_decode.traceback(
+                spec, self.consts, self.tabs, sels, starts_d.long(), nblks_d,
+                tlo_d, thi_d)
         del sels
-        return lva_decode.order(fin_sc, words, okend, spec.list_size)
+        with profiling.span("decoder.order"):
+            return lva_decode.order(fin_sc, words, okend, spec.list_size)
 
     def decode(self, posts: np.ndarray, nblks: Optional[np.ndarray] = None,
                acs: Optional[Callable] = None):
@@ -132,7 +146,12 @@ class LVADecoder:
         Returns:
           (msgs uint8 [B, L, msg_len], scores f32 [B, L], valid bool [B, L])
         """
-        sc, words, okend = self.decode_device(posts, nblks, acs)
-        sc = sc.cpu().numpy()
-        valid = (sc > -np.inf) & okend.cpu().numpy()
-        return unpack_msgs(self.spec, words.cpu().numpy()), sc, valid
+        with profiling.span("decoder.decode"):
+            sc, words, okend = self.decode_device(posts, nblks, acs)
+            with profiling.span("decoder.copy_out"):
+                sc = sc.cpu().numpy()
+                okend = okend.cpu().numpy()
+                words = words.cpu().numpy()
+            with profiling.span("decoder.unpack"):
+                valid = (sc > -np.inf) & okend
+                return unpack_msgs(self.spec, words), sc, valid

@@ -54,13 +54,9 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from ..utils import profiling
 from ._build import check_tensor, load_lva_acs, load_lva_lse
 from .lva_consts import HASH_P1, HASH_P2, NCRF, NQ_MAX, sel_format
-
-# Kernel launches made through ``acs_block`` and ``acs_block_lse`` (CUDA
-# tensors only).
-LAUNCHES = 0
-LSE_LAUNCHES = 0
 
 Buffers = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 NEG = float("-inf")
@@ -302,15 +298,15 @@ def acs_block(tabs: Dict[str, torch.Tensor], prev: Buffers, stale: Buffers,
       active: bool [B], whether the block lies inside each read.
       sel: output selections [B, W, 8L, C], int8 (L <= 16) or int16.
     Returns ``sel``. CPU tensors run ``acs_block_ref``; CUDA tensors launch
-    the kernel, and anything else raises.
+    the kernel, each launch counted as ``acs.launches``
+    (``utils/profiling.py``), and anything else raises.
     """
-    global LAUNCHES
     if _device("acs_block", prev) == "cpu":
         return acs_block_ref(tabs, prev, stale, stay_tr, move_tr, start1,
                              active, sel)
     _launch("lva_acs", tabs, prev, stale, stay_tr, move_tr, start1, active,
             sel)
-    LAUNCHES += 1
+    profiling.count("acs.launches")
     return sel
 
 
@@ -321,14 +317,14 @@ def acs_block_lse(tabs: Dict[str, torch.Tensor], prev: Buffers,
     """One ACS block step with logsumexp combining; arguments and returns as
     in ``acs_block``, with no precondition on the rows of ``prev``: the
     kernel merges every candidate. CPU tensors run ``acs_block_lse_ref``;
-    CUDA tensors launch the kernel, and anything else raises."""
-    global LSE_LAUNCHES
+    CUDA tensors launch the kernel, counted as ``acs.lse_launches``, and
+    anything else raises."""
     if _device("acs_block_lse", prev) == "cpu":
         return acs_block_lse_ref(tabs, prev, stale, stay_tr, move_tr, start1,
                                  active, sel)
     _launch("lva_lse", tabs, prev, stale, stay_tr, move_tr, start1, active,
             sel)
-    LSE_LAUNCHES += 1
+    profiling.count("acs.lse_launches")
     return sel
 
 

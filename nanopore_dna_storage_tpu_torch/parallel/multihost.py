@@ -52,7 +52,7 @@ import torch.distributed as dist
 from ..config import ExperimentConfig
 from ..io.lists import write_list_file
 from ..io.post import pack_posts, read_post
-from ..ops import lva_acs
+from ..utils import profiling
 from .mesh import ShardedDecoder, all_reduce_sum, default_device
 
 
@@ -283,7 +283,7 @@ def main(argv=None) -> JobResult:
             bytes_per_oligo=args.bytes_per_oligo,
             rs_redundancy=args.rs_redundancy,
             conv_mem=args.mem, conv_rate=args.rate, pad=args.pad)
-    lva_acs.LAUNCHES = 0
+    launches = profiling.counter("acs.launches")
     t0 = time.perf_counter()
     res = run_decode_job(args.post_dir, args.outdir, exp, args.list_size,
                          args.max_deviation, args.local_batch,
@@ -298,7 +298,8 @@ def main(argv=None) -> JobResult:
     print(f"process {rank}/{world} done; global crc_pass={res.crc_pass}")
     print(json.dumps({"rank": rank, "world": world, "backend": backend,
                       "device": str(device), **dataclasses.asdict(res),
-                      "k1_launches": lva_acs.LAUNCHES,
+                      "k1_launches": profiling.counter("acs.launches")
+                      - launches,
                       "t_main": t_main, "init_s": init_s, "job_s": job_s,
                       "peak_gib": torch.cuda.max_memory_allocated(device)
                       / 2**30 if device.type == "cuda" else None}),

@@ -21,6 +21,7 @@ from ..coding.rs import rs_decode_oligos
 from ..config import ConvCodeConfig, DecodeConfig, ExperimentConfig
 from ..io.post import pack_posts
 from ..ops.lva import LVADecoder
+from ..utils import profiling
 
 
 @dataclasses.dataclass
@@ -66,25 +67,30 @@ class PipelineDecoder:
                      rc_flags: Sequence[bool], num_oligos: int,
                      acs: Optional[Callable] = None) -> ListDecodeOutcome:
         """Decode a batch of truncated posts with per-read orientation;
-        ``acs`` is the ACS step, as in ``LVADecoder.decode``."""
-        batch, nblks = pack_posts(posts)
-        rc_flags = np.asarray(rc_flags, dtype=bool)
-        L = self.list_size
-        msg_len = self.exp.msg_len()
-        msgs = np.zeros((len(posts), L, msg_len), np.uint8)
-        valid = np.zeros((len(posts), L), bool)
-        best = np.full(len(posts), -np.inf, np.float32)
-        for flag, dec in ((False, self.fwd), (True, self.rc)):
-            sel = np.nonzero(rc_flags == flag)[0]
-            if len(sel) == 0:
-                continue
-            m, sc, v = dec.decode(batch[sel], nblks[sel], acs=acs)
-            msgs[sel] = m
-            valid[sel] = v
-            best[sel] = np.where(v[:, 0], sc[:, 0], -np.inf)
-        out = self.classify(msgs, valid, num_oligos)
-        out.best_score = best
-        return out
+        ``acs`` is the ACS step, as in ``LVADecoder.decode``. The call, the
+        packing and the classification are spans of
+        ``utils/profiling.py``."""
+        with profiling.span("pipeline.decode_posts"):
+            with profiling.span("pipeline.pack_posts"):
+                batch, nblks = pack_posts(posts)
+            rc_flags = np.asarray(rc_flags, dtype=bool)
+            L = self.list_size
+            msg_len = self.exp.msg_len()
+            msgs = np.zeros((len(posts), L, msg_len), np.uint8)
+            valid = np.zeros((len(posts), L), bool)
+            best = np.full(len(posts), -np.inf, np.float32)
+            for flag, dec in ((False, self.fwd), (True, self.rc)):
+                sel = np.nonzero(rc_flags == flag)[0]
+                if len(sel) == 0:
+                    continue
+                m, sc, v = dec.decode(batch[sel], nblks[sel], acs=acs)
+                msgs[sel] = m
+                valid[sel] = v
+                best[sel] = np.where(v[:, 0], sc[:, 0], -np.inf)
+            with profiling.span("pipeline.classify"):
+                out = self.classify(msgs, valid, num_oligos)
+            out.best_score = best
+            return out
 
     def decode_posts_auto_orientation(
             self, posts: Sequence[np.ndarray], num_oligos: int,

@@ -41,6 +41,7 @@ from nanopore_dna_storage_tpu_torch.ops.lva_consts import (
     HASH_P1, HASH_P2, NCRF, DecodeSpec, LVAConsts, from_pallas_state,
     sel_format)
 from nanopore_dna_storage_tpu_torch.probes import merge_roofline
+from nanopore_dna_storage_tpu_torch.utils import profiling
 from test_torch_host import twin
 
 torch.set_num_threads(1)
@@ -448,7 +449,7 @@ def test_wrapper_takes_the_plain_path_on_cpu():
     launch; on another device it raises."""
     spec, tabs, prev, stale, args = _adversarial(4, seed=9)
     W, L, C = spec.window, spec.list_size, spec.code.nstate_conv
-    launches = lva_acs.LAUNCHES
+    launches = profiling.counter("acs.launches")
     outs = []
     for step in (lva_acs.acs_block_ref, lva_acs.acs_block):
         st = [x.clone() for x in stale]
@@ -457,7 +458,7 @@ def test_wrapper_takes_the_plain_path_on_cpu():
         outs.append((st, sel))
     assert all(torch.equal(a, b) for a, b in zip(outs[1][0], outs[0][0]))
     assert torch.equal(outs[1][1], outs[0][1])
-    assert lva_acs.LAUNCHES == launches
+    assert profiling.counter("acs.launches") == launches
     meta = [x.to("meta") for x in prev]
     with pytest.raises(ValueError, match="cpu or cuda"):
         lva_acs.acs_block(tabs, meta, meta, *args, outs[0][1].to("meta"))

@@ -32,6 +32,7 @@ from nanopore_dna_storage_tpu_torch.ops.lva_consts import (
     HASH_P1, HASH_P2, NCRF, DecodeSpec, LVAConsts, sel_format)
 from nanopore_dna_storage_tpu_torch.pipeline.decode import PipelineDecoder
 from nanopore_dna_storage_tpu_torch.probes import merge_roofline
+from nanopore_dna_storage_tpu_torch.utils import profiling
 from test_lva_traceback import _posts
 from test_torch_acs import CASES, _case, _hash_update
 from test_torch_host import twin
@@ -603,7 +604,8 @@ def test_lse_wrapper_takes_the_plain_path_on_cpu():
     counts no launch; on another device it raises."""
     spec, tabs, prev, stale, args = _adversarial(4, seed=9)
     W, L, C = spec.window, spec.list_size, spec.code.nstate_conv
-    launches = lva_acs.LSE_LAUNCHES, lva_acs.LAUNCHES
+    launches = (profiling.counter("acs.lse_launches"),
+                profiling.counter("acs.launches"))
     outs = []
     for step in (lva_acs.acs_block_lse_ref, lva_acs.acs_block_lse):
         st = [x.clone() for x in stale]
@@ -612,7 +614,8 @@ def test_lse_wrapper_takes_the_plain_path_on_cpu():
         outs.append((st, sel))
     assert all(torch.equal(a, b) for a, b in zip(outs[1][0], outs[0][0]))
     assert torch.equal(outs[1][1], outs[0][1])
-    assert (lva_acs.LSE_LAUNCHES, lva_acs.LAUNCHES) == launches
+    assert (profiling.counter("acs.lse_launches"),
+            profiling.counter("acs.launches")) == launches
     meta = [x.to("meta") for x in prev]
     with pytest.raises(ValueError, match="cpu or cuda"):
         lva_acs.acs_block_lse(tabs, meta, meta, *args,
