@@ -188,6 +188,16 @@ Phases, each fatal on failure:
    version, every row sorted, every read's lists those the timed loop
    gave; one K1 launch per forward block step of its warm-up and timed
    loop.
+15. the traceback kernel (``csrc/lva_traceback.cu``) against the plain
+   loop (``lva_decode.traceback_ref``) on the card at the benchmark cells'
+   shapes, ``TRACEBACK_CELLS`` (experiment 7: B=24 L=8 m=11; experiment 0:
+   B=16 L=64 m=8): one batch of forward reads decoded with the traceback
+   replaced by both on the same forward outputs, words and ``okend``
+   bit-equal, one launch counted; both timed by CUDA events, beside the
+   kernel's bound (the bytes it needs, and the longest chain's steps times
+   a device-memory round trip, measured first by a pointer chase over
+   1 GiB; beside it the floor at the round trip of a chase the L2 holds)
+   and its registers; fails if the kernel uses local memory.
 
 Every entry of the kernels line has its bound: the larger of the bytes
 the function must move over the memory rate and its operations over the
@@ -219,7 +229,8 @@ launches against block steps, peak memory and record),
 bounds and shares at both B, the forward and traceback seconds, and
 ``sim-decode``'s seconds, s/read, launches and peak memory),
 ``{"bench": {...}}`` (phase 14: each run's JSON line, seconds and K1
-launches), the card's
+launches), ``{"traceback": {...}}`` (phase 15: each cell's kernel and
+plain times, steps, bound and kernel info), the card's
 name and power limit, and ``{"kernels": [...]}`` (K1's entry adds phase
 9's launches as ``parallel_launches``, phase 10's as
 ``real_data_launches``, phase 11's as ``train_launches``, phase 12's as
@@ -232,6 +243,7 @@ package, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -328,6 +340,17 @@ LSE_PATH_CELLS = ((64, 4, 4, 24), (16, 4, 4, 24))
 # selections take ~2.7 GB at ~520 blocks)
 CHAIN_READS = 32
 CHAIN_BATCH = 8
+# phase 15: the traceback at the benchmark cells' shapes (experiment, list
+# size, reads a batch), the kernel timed over TRACEBACK_REPS launches; a
+# chain's step is one dependent device-memory load, timed for the latency
+# floor by ROUND_TRIP_HOPS hops of a chase over ROUND_TRIP_BYTES, some 20
+# times the L2's 50 MB, and beside it over ROUND_TRIP_L2_BYTES, which the
+# L2 holds and each SM's 256 KB L1 does not
+TRACEBACK_CELLS = ((7, 8, 24), (0, 64, 16))
+TRACEBACK_REPS = 20
+ROUND_TRIP_BYTES = 1 << 30
+ROUND_TRIP_L2_BYTES = 8 << 20
+ROUND_TRIP_HOPS = 100_000
 # phase 8b: the card's transitions and posteriors against the CPU's,
 # absolute and relative: the same float32 chain, its products summed in
 # another order by cuBLAS and by the CPU's BLAS, through five recurrent
@@ -392,6 +415,7 @@ FIDELITY_REPORT_READS = 8
 PROBE_EDIT_TOL = 0.01
 # every kernel library and its sources in csrc/
 LIBS = {"lva_acs": ["lva_acs.cu"], "lva_lse": ["lva_lse.cu"],
+        "lva_traceback": ["lva_traceback.cu"],
         "probes": ["probes.cu"], "expand": ["expand.cu"],
         "mxu_expand": ["mxu_expand.cu"], "lowering": ["lowering.cu"]}
 CSRC = "nanopore_dna_storage_tpu_torch/csrc"
@@ -829,8 +853,16 @@ def phase_goldens(device):
 
 def phase_sim_decode(data: bytes, args, tag="phase 3"):
     """Phase 3 (and 13): the port's ``sim-decode`` CLI in-process on
-    ``data``. Returns (its JSON record, SimStats, kernel launches,
-    seconds)."""
+    ``data``, its CUDA ``LVADecoder.decode_device`` calls counted; fails
+    unless the traceback kernel launched once for each. Returns (its JSON
+    record, SimStats, K1 launches, seconds, traceback launches)."""
+    real = LVADecoder.decode_device
+    decodes = []
+
+    def counted(dec, *a, **k):
+        decodes.append(dec.device.type)
+        return real(dec, *a, **k)
+
     with tempfile.TemporaryDirectory() as tmp:
         f = pathlib.Path(tmp) / "data.bin"
         f.write_bytes(data)
@@ -838,17 +870,28 @@ def phase_sim_decode(data: bytes, args, tag="phase 3"):
         log(f"{tag}: cli " + " ".join(args))
         torch.cuda.synchronize()
         k1_base = profiling.counter("acs.launches")
+        tb_base = profiling.counter("traceback.launches")
+        LVADecoder.decode_device = counted
         t0 = time.perf_counter()
-        rec, stats = cli.main(argv)
-        torch.cuda.synchronize()
+        try:
+            rec, stats = cli.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            LVADecoder.decode_device = real
         wall = time.perf_counter() - t0
         launches = profiling.counter("acs.launches") - k1_base
+        tb_launches = profiling.counter("traceback.launches") - tb_base
+    cuda_decodes = decodes.count("cuda")
     log(f"{tag}: {wall:.3f} s for {stats.num_reads} reads = "
         f"{wall / stats.num_reads:.4f} s/read; {launches} kernel launches "
-        f"for {stats.steps} forward block steps")
+        f"for {stats.steps} forward block steps; {tb_launches} traceback "
+        f"launches for {cuda_decodes} CUDA decodes")
     if not (rec["recovered"] and rec["byte_exact"]):
         fail(f"{tag}: sim-decode did not recover the file: {rec}")
-    return rec, stats, launches, wall
+    if cuda_decodes == 0 or tb_launches != cuda_decodes:
+        fail(f"{tag}: {tb_launches} traceback launches for {cuda_decodes} "
+             f"CUDA decodes")
+    return rec, stats, launches, wall, tb_launches
 
 
 def build_kernels() -> None:
@@ -867,6 +910,7 @@ def build_kernels() -> None:
                 log(f"  ptxas: {line.strip()}")
     _build.load_lva_acs()
     _build.load_lva_lse()
+    _build.load_lva_traceback()
     _build.load_probes()
     _build.load_expand()
     _build.load_mxu_expand()
@@ -3257,7 +3301,7 @@ def list_size_cell(data: bytes, e: int, L: int, B: int, batch: int,
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    sim, stats, launches, wall = phase_sim_decode(data, [
+    sim, stats, launches, wall, tb_launches = phase_sim_decode(data, [
         "--experiment", str(e), "--list-size", str(L), "--num-reads",
         str(reads), "--batch", str(batch), "--seed", str(SEED),
         "--device", "cuda"], tag=tag)
@@ -3268,6 +3312,7 @@ def list_size_cell(data: bytes, e: int, L: int, B: int, batch: int,
     rec["sim_decode"] = {"reads": stats.num_reads, "batch": batch, "s": wall,
                          "s_per_read": wall / stats.num_reads,
                          "k1_launches": launches, "block_steps": stats.steps,
+                         "traceback_launches": tb_launches,
                          "peak_gib": peak, "record": sim}
     return rec
 
@@ -3459,6 +3504,164 @@ def phase_reports(gpu: str):
     return total, line
 
 
+def traceback_info(L: int, Mw: int) -> dict:
+    """Registers, local bytes, resident threads per SM and the shared memory
+    a launch may stage the beam starts in, of the traceback kernel's build
+    for list size ``L`` and ``Mw`` message words; fails if it uses local
+    memory."""
+    lib = _build.load_lva_traceback()
+    out = (ctypes.c_int * 4)()
+    err = lib.lva_traceback_info(L, Mw, out)
+    if err != 0:
+        fail(f"lva_traceback_info: "
+             f"{lib.lva_traceback_error_string(err).decode()}")
+    info = {"registers": out[0], "local_bytes": out[1],
+            "threads_per_sm": out[2], "stage_limit_bytes": out[3]}
+    if info["local_bytes"]:
+        fail(f"the traceback kernel at L = {L}, Mw = {Mw} uses local "
+             f"memory: {info}")
+    return info
+
+
+def round_trip_us(nbytes: int) -> float:
+    """A dependent load's round trip in us: one thread's chase through
+    ``nbytes`` of int64 hops, one a 128-byte line, every line visited in a
+    random order (``lva_traceback_round_trip``), over ``ROUND_TRIP_HOPS``
+    hops by CUDA events; fails unless the chase ends where the hops
+    say."""
+    lib = _build.load_lva_traceback()
+    stride = 16  # int64 a 128-byte line
+    lines = nbytes // (8 * stride)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    order = torch.randperm(lines, device="cuda", generator=g) * stride
+    nxt = torch.zeros(lines * stride, dtype=torch.int64, device="cuda")
+    nxt[order] = order.roll(-1)
+    end = torch.empty(1, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def chase(hops):
+        err = lib.lva_traceback_round_trip(nxt.data_ptr(), hops,
+                                           end.data_ptr(), stream)
+        if err != 0:
+            fail(f"lva_traceback_round_trip: "
+                 f"{lib.lva_traceback_error_string(err).decode()}")
+
+    # a 256 MiB write evicts from the L2 what building the hops left there;
+    # then a chase that revisits its lines first walks them all once, and a
+    # longer cycle takes one hop (which loads the kernel): a warm-up of the
+    # timed hops would leave them in the L2 for it
+    torch.empty(256 << 20, dtype=torch.uint8, device="cuda").zero_()
+    chase(lines if lines <= ROUND_TRIP_HOPS else 1)
+    ms = cuda_ms(lambda: chase(ROUND_TRIP_HOPS), 1, 0)
+    at = int((order == 0).nonzero()[0, 0])
+    if int(end) != int(order[(at + ROUND_TRIP_HOPS) % lines]):
+        fail("the round-trip chase did not end where its hops lead")
+    return 1e3 * ms / ROUND_TRIP_HOPS
+
+
+class CheckedTraceback:
+    """``lva_decode.traceback`` replaced inside a decode: the kernel and the
+    plain loop on the same forward outputs, both timed by CUDA events, the
+    results bit-equal; returns the kernel's. Records the times, the steps
+    and the bytes the kernel needs."""
+
+    def __init__(self, real, round_trip: float, l2_round_trip: float):
+        self.real = real
+        self.round_trip = round_trip
+        self.l2_round_trip = l2_round_trip
+        self.rec = None
+
+    def __call__(self, spec, consts, tabs, sels, starts, nblks, tlo, thi):
+        args = (spec, consts, tabs, sels, starts, nblks, tlo, thi)
+        before = profiling.counter("traceback.launches")
+        out = self.real(*args)
+        if profiling.counter("traceback.launches") != before + 1:
+            fail("the traceback on the card did not launch its kernel once")
+        ms = cuda_ms(lambda: self.real(*args), TRACEBACK_REPS)
+        plain_ms = cuda_ms(lambda: lva_decode.traceback_ref(*args), 1, 0)
+        want = lva_decode.traceback_ref(*args)
+        for name, got, ref in zip(("words", "okend"), out, want):
+            if not torch.equal(got, ref):
+                fail(f"phase 15: the kernel's {name} differ from the plain "
+                     f"loop's")
+        T, B, W, nch, C = sels.shape
+        # a chain acts at most once a block: the longest takes at most the
+        # longest read's blocks in steps, each one code; the per-read
+        # inputs and the outputs once
+        longest = int(nblks.max())
+        nbytes = (T * B * nch * sels.element_size() + starts.numel() * 8
+                  + (tlo.numel() + thi.numel()) * 8
+                  + out[0].numel() * 8 + out[1].numel())
+        self.rec = {"T": T, "B": B, "chains": B * nch, "W": W, "C": C,
+                    "Mw": spec.n_msg_words, "ms": ms, "plain_ms": plain_ms,
+                    "plain_ms_per_block": plain_ms / T,
+                    "longest_chain_steps": longest, "bytes": nbytes,
+                    "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                    "round_trip_us": self.round_trip,
+                    "latency_floor_ms": longest * self.round_trip / 1e3,
+                    # the floor were every step's code already in L2
+                    "l2_latency_floor_ms":
+                        longest * self.l2_round_trip / 1e3,
+                    "us_per_step_of_longest": 1e3 * ms / longest,
+                    "okend": int(out[1].sum())}
+        return out
+
+
+def phase_traceback(data: bytes, gpu: str) -> dict:
+    """Phase 15: the traceback kernel against the plain loop at each of
+    ``TRACEBACK_CELLS``'s shapes, on one batch of forward reads of the
+    experiment decoded with ``CheckedTraceback`` in the traceback's place.
+    Returns the phase's record, with the device-memory round trip its
+    latency floors are counted in (``round_trip_us``)."""
+    rt = round_trip_us(ROUND_TRIP_BYTES)
+    rt_l2 = round_trip_us(ROUND_TRIP_L2_BYTES)
+    log(f"phase 15: a dependent load's round trip over "
+        f"{ROUND_TRIP_BYTES >> 20} MiB {rt:.4f} us, over "
+        f"{ROUND_TRIP_L2_BYTES >> 20} MiB (in L2) {rt_l2:.4f} us")
+    line = {"gpu": gpu, "round_trip_us": rt, "l2_round_trip_us": rt_l2}
+    for e, L, B in TRACEBACK_CELLS:
+        tag = f"phase 15 (experiment {e}, L={L}, B={B})"
+        exp = experiment(e)
+        enc = encode_bytes(data, exp)
+        posts, rcs, _ = simulate_posts(enc.oligos, 4 * B,
+                                       np.random.default_rng(SEED))
+        fwd = [p for p, rc in zip(posts, rcs) if not rc][:B]
+        if len(fwd) < B:
+            fail(f"{tag}: {len(fwd)} forward reads for B={B}")
+        dec = LVADecoder(DecodeConfig(
+            code=ConvCodeConfig(mem=exp.conv_mem, rate=exp.conv_rate,
+                                msg_len=exp.msg_len()),
+            list_size=L, max_deviation=20), device="cuda")
+        info = traceback_info(L, dec.spec.n_msg_words)
+        batch_posts, nblks = pack_posts(fwd)
+        check = CheckedTraceback(lva_decode.traceback, rt, rt_l2)
+        lva_decode.traceback = check
+        try:
+            _, _, valid = dec.decode(batch_posts, nblks)
+        finally:
+            lva_decode.traceback = check.real
+        if check.rec is None or not valid[:, 0].all():
+            fail(f"{tag}: traceback not checked, or top entries invalid: "
+                 f"{valid[:, 0]}")
+        r = {**check.rec, "kernel_info": info}
+        r["bound_ms"], r["bound_by"] = max(
+            (r["bytes_ms"], "bytes"), (r["latency_floor_ms"], "latency"))
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        log(f"{tag}: nblk {nblks.min()}-{nblks.max()}, {r['chains']} "
+            f"chains, words and okend bit-equal to the plain loop; kernel "
+            f"{r['ms']:.4f} ms, plain loop {r['plain_ms']:.1f} ms "
+            f"({r['plain_ms_per_block']:.4f} ms a block); longest chain "
+            f"at most {r['longest_chain_steps']} steps "
+            f"({r['us_per_step_of_longest']:.3f} us a step); bound "
+            f"{r['bytes_ms']:.4f} ms by bytes ({r['bytes']} B), "
+            f"{r['latency_floor_ms']:.4f} ms by latency at {rt:.4f} us a "
+            f"round trip, {100 * r['share_of_bound']:.1f}% of it "
+            f"({r['l2_latency_floor_ms']:.4f} ms at the L2's); "
+            f"kernel_info {json.dumps(info)}")
+        line[f"exp{e}"] = r
+    return line
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3514,7 +3717,7 @@ def main() -> int:
     log(f"phase 2: {n} goldens identical in {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    _, stats, launches, wall = phase_sim_decode(data, [
+    _, stats, launches, wall, tb_launches = phase_sim_decode(data, [
         "--experiment", "7", "--list-size", "8", "--num-reads", "32",
         "--batch", "8", "--seed", str(SEED), "--device", "cuda"])
     log(f"phase 3: peak device memory "
@@ -3579,6 +3782,10 @@ def main() -> int:
     bench_launches, bench_line = phase_bench(gpu)
     log(f"phase 14: done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    traceback_line = phase_traceback(data, gpu)
+    log(f"phase 15: done in {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(f"lva_acs and lva_acs_lse times below: one block step at the main "
         f"path's B={B}")
@@ -3595,6 +3802,7 @@ def main() -> int:
     log(json.dumps({"reports": reports_line}))
     log(json.dumps({"list_sizes": list_line}))
     log(json.dumps({"bench": bench_line}))
+    log(json.dumps({"traceback": traceback_line}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [{
         "name": "lva_acs",
@@ -3628,7 +3836,20 @@ def main() -> int:
         "bound_by": acs["bound_by"],
         # no one PyTorch call computes a list-Viterbi block step
         "library_ms": None,
-    }, lse_entry, *probes, *expansions, *lowerings]}))
+    }, lse_entry, {
+        "name": "lva_traceback",
+        "route": "cuda",
+        "source": "nanopore_dna_storage_tpu_torch/csrc/lva_traceback.cu",
+        # no Pallas kernel: the JAX package's traceback is an XLA scan
+        "replaces": "nanopore_dna_storage_tpu/ops/lva_pallas.py:1086",
+        # phase 3's sim-decode, one a CUDA decode
+        "launches": tb_launches,
+        "ms": traceback_line["exp7"]["ms"],
+        "plain_ms": traceback_line["exp7"]["plain_ms"],
+        "bound_ms": traceback_line["exp7"]["bound_ms"],
+        "bound_by": traceback_line["exp7"]["bound_by"],
+        "library_ms": None,
+    }, *probes, *expansions, *lowerings]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -140,6 +140,30 @@ def load_lva_lse() -> ctypes.CDLL:
     return _load_step("lva_lse")
 
 
+def load_lva_traceback() -> ctypes.CDLL:
+    """The selection traceback kernel library (``csrc/lva_traceback.cu``),
+    built on first call."""
+    if "lva_traceback" not in _LIBS:
+        lib = ctypes.CDLL(str(build("lva_traceback", ["lva_traceback.cu"])))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # 11 pointers (sels, starts, nblks, tlo, thi, qmap, pattern, nbits,
+        # cstar, words, okend), then B, T, W, L, C, P, Mw, the last row, the
+        # initial and final conv states, and the CUDA stream
+        lib.lva_traceback_launch.argtypes = [p] * 11 + [i] * 10 + [p]
+        lib.lva_traceback_launch.restype = i
+        # L, Mw, and where registers, local bytes, threads per SM and the
+        # starts' shared-memory limit go
+        lib.lva_traceback_info.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.lva_traceback_info.restype = i
+        # the hop table, the hops, where the chase ends, the CUDA stream
+        lib.lva_traceback_round_trip.argtypes = [p, ctypes.c_int64, p, p]
+        lib.lva_traceback_round_trip.restype = i
+        lib.lva_traceback_error_string.argtypes = [i]
+        lib.lva_traceback_error_string.restype = ctypes.c_char_p
+        _LIBS["lva_traceback"] = lib
+    return _LIBS["lva_traceback"]
+
+
 def load_probes() -> ctypes.CDLL:
     """The merge-family probe kernels (``csrc/probes.cu``), built on first
     call."""

@@ -7,10 +7,11 @@ Counterpart of ``nanopore_dna_storage_tpu/ops/lva_pallas.py``
 ``PallasDecoder``. The forward runs one ACS step per signal block and keeps
 the selections of every block, ``[T, B, W, 8L, C]``, on the device (block
 major, so each step writes one contiguous slice); the traceback walks them
-backward to rebuild the 8L final-state messages of each read. Where the JAX
-decoder pairs blocks in its scan to avoid buffer copies, here the (prev,
-stale) roles swap by swapping two Python references after every block,
-inactive blocks included.
+backward to rebuild the 8L final-state messages of each read, in one launch
+of ``csrc/lva_traceback.cu`` on the card and in ``traceback_ref``'s loop
+over the blocks on the CPU. Where the JAX decoder pairs blocks in its scan
+to avoid buffer copies, here the (prev, stale) roles swap by swapping two
+Python references after every block, inactive blocks included.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+from ._build import check_tensor, load_lva_traceback
 from .lva_acs import acs_block
 from .lva_consts import NCRF, NQ_MAX, DecodeSpec, LVAConsts, sel_format
 
@@ -102,10 +105,76 @@ def traceback(spec: DecodeSpec, consts: LVAConsts, tabs,
               tlo: torch.Tensor, thi: torch.Tensor):
     """Rebuild the packed messages of all 8L final-state chains per read.
 
-    A block t read row r as last written at the largest t' <= t-1 with
-    t' = t-1 (mod 2) whose window covered r; if there is none, the read
-    hit the initial buffers, where only padded row 1 at the initial state
-    in slot 0 is live (``okend``) (cpp:607-620, 667-687).
+    Arguments and returns as in ``traceback_ref``, which states the
+    semantics. CPU tensors run ``traceback_ref``; any other device launches
+    ``csrc/lva_traceback.cu`` once, counted as ``traceback.launches``
+    (``utils/profiling.py``), or raises: one thread a chain, jumping from
+    each block where the chain acts to the next.
+    """
+    if sels.device.type == "cpu":
+        return traceback_ref(spec, consts, tabs, sels, starts, nblks, tlo,
+                             thi)
+    return _launch_traceback(spec, consts, tabs, sels, starts, nblks, tlo,
+                             thi)
+
+
+def _launch_traceback(spec: DecodeSpec, consts: LVAConsts, tabs,
+                      sels: torch.Tensor, starts: torch.Tensor,
+                      nblks: torch.Tensor, tlo: torch.Tensor,
+                      thi: torch.Tensor):
+    """Check the traceback's arguments against ``sels``'s device and launch
+    the kernel on the current stream; raises on anything it does not
+    take, before any launch."""
+    dev = sels.device
+    T, B = sels.shape[:2]
+    L, C, W, P = (spec.list_size, spec.code.nstate_conv, spec.window,
+                  spec.npos_pad)
+    Mw = spec.n_msg_words
+    if Mw > 32:
+        raise ValueError("the traceback kernel supports up to 32 message "
+                         "words")
+    check_tensor("sels", sels, sel_format(L)[0], (T, B, W, NCRF * L, C), dev)
+    check_tensor("starts", starts, torch.int64, (B, T), dev)
+    check_tensor("nblks", nblks, torch.int64, (B,), dev)
+    check_tensor("tlo", tlo, torch.int64, (B, P), dev)
+    check_tensor("thi", thi, torch.int64, (B, P), dev)
+    check_tensor("qmap", tabs["qmap"], torch.int32, (NCRF, NQ_MAX), dev)
+    check_tensor("pattern", tabs["pattern"], torch.int32, (P,), dev)
+    check_tensor("nbits", tabs["nbits"], torch.int32, (2, C), dev)
+    check_tensor("cstar", tabs["cstar"], torch.int32, (4, 4, C), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"the traceback runs on cpu or cuda, not {dev}")
+    words = torch.empty((B, NCRF * L, Mw), dtype=torch.int64, device=dev)
+    okend = torch.empty((B, NCRF * L), dtype=torch.bool, device=dev)
+    lib = load_lva_traceback()
+    ptrs = [t.data_ptr() for t in (sels, starts, nblks, tlo, thi,
+                                   tabs["qmap"], tabs["pattern"],
+                                   tabs["nbits"], tabs["cstar"], words,
+                                   okend)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lva_traceback_launch(
+            *ptrs, B, T, W, L, C, P, Mw, spec.code.nstate_pos,
+            consts.init_state, consts.final_state, stream)
+    if err != 0:
+        raise RuntimeError("lva_traceback launch failed: "
+                           + lib.lva_traceback_error_string(err).decode())
+    profiling.count("traceback.launches")
+    return words, okend
+
+
+def traceback_ref(spec: DecodeSpec, consts: LVAConsts, tabs,
+                  sels: torch.Tensor, starts: torch.Tensor,
+                  nblks: torch.Tensor, tlo: torch.Tensor, thi: torch.Tensor):
+    """Plain PyTorch traceback: the packed messages of all 8L final-state
+    chains per read, one step of torch ops for every block.
+
+    sels [T, B, W, 8L, C] (``forward``'s), starts int64 [B, T], nblks int64
+    [B], tlo and thi int64 [B, P] (``window_bounds`` per read), all on one
+    device. A block t read row r as last written at the largest t' <= t-1
+    with t' = t-1 (mod 2) whose window covered r; if there is none, the
+    read hit the initial buffers, where only padded row 1 at the initial
+    state in slot 0 is live (``okend``) (cpp:607-620, 667-687).
     Returns (words int64 [B, 8L, Mw] holding uint32 values, okend bool
     [B, 8L]).
     """

@@ -35,7 +35,8 @@ reads each): ``pipeline.decode_posts``, ``pipeline.pack_posts``,
 ``decoder.copy_in``, ``decoder.forward``, ``decoder.traceback``,
 ``decoder.order``, ``decoder.copy_out``, ``decoder.unpack``; the counters
 ``decoder.blocks`` (block steps a decode runs, T a call), ``acs.launches``
-and ``acs.lse_launches`` (the ACS kernels' launches).
+and ``acs.lse_launches`` (the ACS kernels' launches), ``traceback.launches``
+(the traceback kernel's, one a decode on the card).
 """
 from __future__ import annotations
 

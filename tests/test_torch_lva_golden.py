@@ -1,6 +1,8 @@
 """The port's ``LVADecoder`` (CPU, plain ACS step) against the reference
-binary's golden decoded lists (tests/golden/decode), bit for bit. The m=11
-and m=14 cases run through the CUDA kernel in chip_smoke.py.
+binary's golden decoded lists (tests/golden/decode), bit for bit; on the
+fast m=6 cases also the numpy model of the traceback kernel's walk
+(``test_torch_traceback.walk``) against the traceback those decodes ran.
+The m=11 and m=14 cases run through the CUDA kernel in chip_smoke.py.
 """
 import json
 import pathlib
@@ -11,6 +13,7 @@ import torch
 from nanopore_dna_storage_tpu_torch.config import ConvCodeConfig, DecodeConfig
 from nanopore_dna_storage_tpu_torch.ops.lva import LVADecoder
 from test_lva_decode import _cases, _load_post, _ref_lists
+from test_torch_traceback import model_matches, spy_traceback
 
 torch.set_num_threads(1)
 
@@ -37,8 +40,10 @@ def _golden_ids(fast):
 
 
 @pytest.mark.parametrize("idx", _golden_ids(fast=True))
-def test_golden_m6(golden_dir, idx):
+def test_golden_m6(golden_dir, idx, monkeypatch):
+    seen = spy_traceback(monkeypatch)
     _golden(golden_dir, idx)
+    model_matches(seen)
 
 
 @pytest.mark.slow
